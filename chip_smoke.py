@@ -6,20 +6,34 @@
 Phases, each of which exits non-zero when it fails:
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
-2. build every CUDA kernel of ``givepose_torch/csrc`` with nvcc (sm_90a);
-3. hold the DCNv3 forward kernel against its plain PyTorch version on the
-   card: the three MAPEncoder shapes at batch 8 and edge cases (stride 1,
-   dilation 2, 16 and 96 and 5 channels per group, large offsets, an odd
-   output size), with x in bf16 and in f32;
+2. build every CUDA kernel of ``givepose_torch/csrc`` with nvcc (sm_90a),
+   one nvcc per source, all started together;
+3. hold the DCNv3 forward and backward kernels against their plain
+   PyTorch versions on the card: the three MAPEncoder shapes at batch 8,
+   edge cases (stride 1, dilation 2, 16 and 96 and 5 channels per group,
+   large offsets, an odd output size) and, for the backward, zero offsets,
+   with x in bf16 and in f32;
 4. serve batch-32 requests through full-width ConvNeXt-B PoseNet (default
    ModelConfig, bf16, seeded random weights, DCNv3 offset and mask
    projections perturbed so that samples land off the grid); check the
    outputs and that the kernel ran three times per request; serve one
    request again through the plain DCNv3 version and compare, in bf16 and
    in an f32 copy of the model;
-5. time each DCNv3 layer (kernel, plain version, bound) and the PoseNet
-   forward with CUDA events, and break the forward's device time down by
-   op with torch.profiler.
+5. train: the same model under the default Config (Ranger, lr 1e-3, clip
+   5, batch 48) takes 5 steps on a seeded batch (256² crops, 64² maps and
+   masks, 1024 model points, random rotations, half of them symmetric);
+   the loss stays finite, parameters and BatchNorm statistics move,
+   nothing is skipped, and each step launches each DCNv3 kernel three
+   times; then a step whose translation target holds a NaN must leave the
+   parameters untouched and count one skip; then one step's losses and
+   gradients with the kernels against the plain DCNv3 version, in an f32
+   copy at batch 8 and in bf16;
+6. time each DCNv3 layer, forward at the serving batch 32 and backward at
+   the training batch 48 (kernel, plain version, bound), the PoseNet
+   forward and the train step with CUDA events, break the forward's and
+   the train step's device time down by op with torch.profiler, and the
+   train step's wall and device time down by part (forward, gradients,
+   optimizer).
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -27,7 +41,9 @@ The line before the last lists the kernels as JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -38,6 +54,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 32
 REQUESTS = 3
 CHECK_BATCH = 8
+TRAIN_BATCH = 48           # TrainConfig.batch_size
+TRAIN_STEPS = 5            # checked steps of the train phase
+TIMED_STEPS = 10
 # kernel vs plain version on the same (dtype-rounded) inputs: both sum in
 # f32, only the order differs
 KERNEL_BAR = 1e-4          # max abs err <= KERNEL_BAR * max|ref|
@@ -54,6 +73,11 @@ ORTHO_BAR = 1e-3           # max |R^T R - I|
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 FLOP_PER_TAP_CHANNEL = 10  # 4 corner FMAs + 1 mask FMA
+# backward: 4 corner-dot FMAs, 4 scatter products, 4 atomic adds
+BWD_FLOP_PER_TAP_CHANNEL = 16
+# kernel path vs plain DCNv3 path in one train step, f32 model: each
+# path's gradients against the f64-sampling reference (compare_train_paths)
+GRAD_RATIO = 2.0           # kernel error <= GRAD_RATIO * plain error
 
 # DCNv3 layers of the MAPEncoder: (name, input side), k3 s2 p1, 4 x 64 ch
 MAIN_LAYERS = [("layer0", 64), ("layer1", 32), ("layer2", 16)]
@@ -136,6 +160,47 @@ def check_kernel(gen) -> float:
                 f"(bar {BF16_BAR}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"dcnv3_fwd disagrees with dcnv3_core on {name} "
+                     f"{dtype}")
+    return worst
+
+
+def check_bwd_kernel(gen) -> float:
+    """Phase 3, backward: d_x, d_offset and d_mask of the kernel against
+    autograd of the plain version, each within KERNEL_BAR * max|ref|;
+    returns the largest max abs error over all cases and outputs."""
+    import torch
+
+    from givepose_torch.ops.dcnv3 import dcnv3_core_bwd
+    from givepose_torch.ops.dcnv3_cuda import dcnv3_bwd_cuda
+
+    cases = ([(name, CHECK_BATCH, s, s, 4, 64, 2, 1, 1, 2.0)
+              for name, s in MAIN_LAYERS] + EDGE_CASES
+             + [("zero_offsets", CHECK_BATCH, 64, 64, 4, 64, 2, 1, 1, 0.0),
+                ("zero_off_s1", 2, 20, 20, 4, 64, 1, 1, 1, 0.0)])
+    worst = 0.0
+    for name, n, h, w, group, gc, stride, pad, dil, mult in cases:
+        x, off, m = dcnv3_inputs(gen, n, h, w, group, gc, stride, pad, dil,
+                                 mult)
+        g = torch.randn(n, out_side(h, stride, pad, dil),
+                        out_side(w, stride, pad, dil), group * gc,
+                        generator=gen, device=gen.device)
+        kw = dict(stride=stride, pad=pad, dilation=dil, group=group)
+        for dtype in (torch.bfloat16, torch.float32):
+            xd = x.to(dtype)
+            got = dcnv3_bwd_cuda(xd, off, m, g, **kw)
+            want = dcnv3_core_bwd(xd, off, m, g, **kw)
+            torch.cuda.synchronize()
+            errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+            bars = [KERNEL_BAR * b.abs().max().item() for b in want]
+            ok = all(e <= bar for e, bar in zip(errs, bars))
+            worst = max(worst, *errs)
+            log(f"  dcnv3_bwd {name:<12} x{tuple(x.shape)} "
+                f"{str(dtype).split('.')[1]:<8} max_abs_err d_x {errs[0]:.3e} "
+                f"(bar {bars[0]:.3e}) d_offset {errs[1]:.3e} "
+                f"(bar {bars[1]:.3e}) d_mask {errs[2]:.3e} "
+                f"(bar {bars[2]:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"dcnv3_bwd disagrees with dcnv3_core_bwd on {name} "
                      f"{dtype}")
     return worst
 
@@ -264,6 +329,234 @@ def compare_paths(model, batch, out) -> None:
             fail(f"PoseNet {k} differs between the kernel and plain paths")
 
 
+def train_batch(b: int, seed: int) -> dict:
+    """A seeded training batch on the card: the serving fields
+    (``example_serving_batch``: 256² crops, 64² 2-D coordinates) plus the
+    targets, with uniformly random rotations, half of the samples
+    symmetric about y, 64² maps and masks and 1024 model points."""
+    import torch
+
+    from givepose_torch.eval.serving import example_serving_batch
+
+    batch = example_serving_batch(b, seed=seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen,
+                                           device="cuda")
+
+    w, x, y, z = torch.nn.functional.normalize(
+        torch.randn(b, 4, generator=gen, device="cuda"), dim=1).unbind(1)
+    rot = torch.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+        2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+        2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y),
+    ], dim=1).reshape(b, 3, 3)
+    sym = torch.tensor([[1.0, 1, 0, 1]] * (b // 2)
+                       + [[0.0, 1, 0, 0]] * (b - b // 2), device="cuda")
+    res = 64
+    batch.update({
+        "rotation": rot,
+        "translation": torch.randn(b, 3, generator=gen, device="cuda") * 0.2
+        + torch.tensor([0.0, 0.0, 1.0], device="cuda"),
+        "real_size": uniform(0.05, 0.3, b, 3),
+        "nocs_scale": uniform(0.1, 0.4, b),
+        "sym_info": sym,
+        "nocs_coord": uniform(-0.5, 0.5, b, res, res, 3),
+        "ivfc_coord": uniform(-0.5, 0.5, b, res, res, 3),
+        "roi_mask_output": (uniform(0, 1, b, res, res, 1) > 0.4).float(),
+        "roi_ivfc_mask_output": (uniform(0, 1, b, res, res, 1)
+                                 > 0.4).float(),
+        "model_point": uniform(-0.5, 0.5, b, 1024, 3),
+    })
+    return batch
+
+
+def snapshot(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def moved(before: dict, model, running: bool) -> bool:
+    """Whether any parameter (running=False) or BatchNorm running
+    statistic (running=True) differs from ``before``."""
+    import torch
+
+    return any(not torch.equal(v, before[k])
+               for k, v in model.state_dict().items()
+               if ("running_" in k) == running)
+
+
+def train(state, step, batch) -> tuple[list, int, int]:
+    """Phase 5: the training main path, TRAIN_STEPS steps at batch 48.
+    Returns the total losses and the launches of each kernel."""
+    import torch
+
+    from givepose_torch.ops.dcnv3_cuda import dcnv3_bwd_cuda, dcnv3_cuda
+
+    before = snapshot(state.model)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dcnv3_cuda.launches = 0
+    dcnv3_bwd_cuda.launches = 0
+    metrics = [step(state, batch, gen) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    fwd, bwd = dcnv3_cuda.launches, dcnv3_bwd_cuda.launches
+    losses = [m["total_loss"].item() for m in metrics]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"train loss is not finite: {losses}")
+    if metrics[-1]["notfinite_total"] != 0:
+        fail(f"{metrics[-1]['notfinite_total']} steps were skipped")
+    if fwd != 3 * TRAIN_STEPS or bwd != 3 * TRAIN_STEPS:
+        fail(f"dcnv3_fwd launched {fwd} and dcnv3_bwd {bwd} times in "
+             f"{TRAIN_STEPS} steps, expected 3 each per step")
+    if not moved(before, state.model, running=False):
+        fail("the parameters did not move")
+    if not moved(before, state.model, running=True):
+        fail("the BatchNorm running statistics did not move")
+    for i, m in enumerate(metrics):
+        log(f"  step {i + 1}: total_loss {m['total_loss'].item():.5f} "
+            f"grad_norm {m['grad_norm'].item():.4f} " + " ".join(
+                f"{k} {m[k].item():.4f}" for k in
+                ("Rot1", "Tran", "Size", "Point_matching", "nocs_coor",
+                 "sp2d_coor")))
+    return losses, fwd, bwd
+
+
+def nan_step(state, step, batch) -> None:
+    """A NaN in a loss target: the finite guard must skip the update.
+    (In ``roi_img`` it would turn SizeHead's running statistics NaN, which
+    the JAX package and the port both replace on a skipped step too.)"""
+    import torch
+
+    bad = dict(batch)
+    bad["translation"] = batch["translation"].clone()
+    bad["translation"][0, 0] = float("nan")
+    before = snapshot(state.model)
+    skipped = state.optimizer.total_notfinite
+    m = step(state, bad, torch.Generator(device="cuda").manual_seed(8))
+    if m["notfinite_total"] != skipped + 1:
+        fail(f"the NaN step was not counted ({m['notfinite_total']})")
+    if moved(before, state.model, running=False):
+        fail("the NaN step moved the parameters")
+    log(f"  NaN target: loss {m['total_loss'].item()}, notfinite_total "
+        f"{m['notfinite_total']}, parameters untouched")
+
+
+def step_grads(model, loss_fn, batch, seed: int) -> tuple[dict, dict]:
+    """Losses and gradients of one training forward (dropout from
+    ``seed``), as the train step takes them."""
+    import torch
+
+    out = model(batch, train=True,
+                generator=torch.Generator(device="cuda").manual_seed(seed))
+    losses = loss_fn(out, batch)
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(sum(losses.values()), params)
+    return ({k: v.item() for k, v in losses.items()},
+            dict(zip(names, grads)))
+
+
+@contextlib.contextmanager
+def dcn_core_in_f64():
+    """Within the block, every DCNv3 layer samples through the plain
+    version in f64 (forward and, by autograd, backward) and hands back
+    f32: the reference for the kernel-vs-plain gradient check."""
+    import givepose_torch.models.dcnv3_module as dcnv3_module
+    from givepose_torch.ops.dcnv3 import dcnv3_core
+
+    def f64(x, offset, mask, impl, **kw):
+        return dcnv3_core(x.double(), offset.double(), mask.double(),
+                          **kw).float()
+
+    orig = dcnv3_module.dcnv3
+    dcnv3_module.dcnv3 = f64
+    try:
+        yield
+    finally:
+        dcnv3_module.dcnv3 = orig
+
+
+def grad_error(grads: dict, ref: dict) -> tuple[float, str, float]:
+    """(worst leaf's max|g - ref| / max|ref|, that leaf, relative L2 error
+    over all leaves), leaves that are zero up to rounding (below 1e-6 of
+    the largest gradient: the bias ahead of SizeHead's batch-statistics
+    BatchNorm) left out."""
+    top = max(g.abs().max().item() for g in ref.values())
+    worst, worst_key, num, den = 0.0, "", 0.0, 0.0
+    for k, r in ref.items():
+        scale = r.abs().max().item()
+        if scale < 1e-6 * top:
+            continue
+        d = grads[k].double() - r.double()
+        if d.abs().max().item() / scale > worst:
+            worst, worst_key = d.abs().max().item() / scale, k
+        num += d.square().sum().item()
+        den += r.double().square().sum().item()
+    return worst, worst_key, math.sqrt(num / den)
+
+
+def compare_train_paths(model, batch) -> None:
+    """One step's losses and gradients with the DCNv3 kernels against the
+    plain DCNv3 version, from the same weights, on the same batch and
+    dropout mask.
+
+    f32 (an f32 copy of the model, TF32 off): each loss term within
+    1e-5 * (1 + |plain|).  The gradients cannot be held to each other at
+    1e-4 of a leaf's largest value: at this random initialisation a
+    change of the DCNv3 layers' rounding alone (the plain version against
+    itself with its sampling in f64) moves them by up to ~1e-2 (ReLU
+    inputs within rounding of zero, and sums that cancel, such as the
+    GroupNorm biases').  So both paths are held against that f64-sampling
+    reference: the kernel path's worst leaf and its relative L2 error may
+    not exceed GRAD_RATIO times the plain path's.  bf16: the summed gap
+    between the kernel and plain losses may not exceed the plain bf16
+    losses' own gap to the f32 ones."""
+    from givepose_torch.core.config import LossConfig, ModelConfig
+    from givepose_torch.eval.serving import build_posenet
+    from givepose_torch.losses.pose_loss import PoseLossFn
+
+    loss_fn = PoseLossFn(LossConfig(), device="cuda")
+    sd = model.state_dict()
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        m = build_posenet(ModelConfig(compute_dtype=dtype), state_dict=sd)
+        for impl in ("auto", "torch"):
+            set_dcn_impl(m, impl)
+            results[dtype, impl] = step_grads(m, loss_fn, batch, seed=9)
+        if dtype == "float32":
+            with dcn_core_in_f64():
+                results[dtype, "f64"] = step_grads(m, loss_fn, batch, seed=9)
+        del m
+    (l_k, g_k), (l_p, g_p) = results["float32", "auto"], results[
+        "float32", "torch"]
+    for k in l_p:
+        d = abs(l_k[k] - l_p[k])
+        log(f"  f32 loss {k:<15} kernel {l_k[k]:.7f} plain {l_p[k]:.7f} "
+            f"diff {d:.2e}")
+        if d > 1e-5 * (1 + abs(l_p[k])):
+            fail(f"f32 loss {k} differs between the kernel and plain paths")
+    g_ref = results["float32", "f64"][1]
+    kw, kk, kl2 = grad_error(g_k, g_ref)
+    pw, pk, pl2 = grad_error(g_p, g_ref)
+    vw, vk, vl2 = grad_error(g_k, g_p)
+    log(f"  f32 gradients against the f64-sampling reference, "
+        f"{len(g_ref)} leaves: kernel path worst leaf {kw:.3e} ({kk}), "
+        f"L2 {kl2:.3e}; plain path worst leaf {pw:.3e} ({pk}), L2 "
+        f"{pl2:.3e}; kernel vs plain worst leaf {vw:.3e} ({vk}), L2 "
+        f"{vl2:.3e} (bar: kernel <= {GRAD_RATIO} x plain)")
+    if kw > GRAD_RATIO * pw or kl2 > GRAD_RATIO * pl2:
+        fail("the kernel path's f32 gradients are further from the "
+             "f64-sampling reference than the plain path's allow")
+    l16k, l16p = results["bfloat16", "auto"][0], results["bfloat16",
+                                                        "torch"][0]
+    gap = sum(abs(l16k[k] - l16p[k]) for k in l_p)
+    own = sum(abs(l16p[k] - l_p[k]) for k in l_p)
+    log(f"  bf16 losses, kernel vs plain: summed gap {gap:.3e} (bar = plain "
+        f"bf16 vs f32 {own:.3e}) {'ok' if gap <= own else 'FAIL'}")
+    if gap > own:
+        fail("bf16 losses differ between the kernel and plain paths by more "
+             "than bf16 departs from f32")
+
+
 def time_ms(fn, reps: int, flush=None) -> float:
     """Mean device time of ``fn`` in ms, CUDA events around each call,
     after a warm-up; ``flush`` (a large tensor) is overwritten before each
@@ -287,7 +580,7 @@ def time_ms(fn, reps: int, flush=None) -> float:
 
 
 def time_layers(gen, card: str) -> dict:
-    """Phase 5a: each MAPEncoder DCNv3 layer at batch 32, bf16 x."""
+    """Phase 6a: each MAPEncoder DCNv3 layer at batch 32, bf16 x."""
     import torch
 
     from givepose_torch.ops.dcnv3 import dcnv3_core
@@ -324,8 +617,166 @@ def time_layers(gen, card: str) -> dict:
     return total
 
 
+def time_bwd_layers(gen, card: str) -> dict:
+    """Phase 6b: the backward of each MAPEncoder DCNv3 layer at the
+    training batch 48, bf16 x.  Bytes: x, grad_out, offset, mask read once,
+    d_x (f32), d_offset, d_mask written once; zeroing d_x before the
+    kernel and casting it to bf16 after are not counted (they are outside
+    the kernel, and ``ms`` does not include them either)."""
+    import torch
+
+    from givepose_torch.ops.dcnv3 import dcnv3_core_bwd
+    from givepose_torch.ops.dcnv3_cuda import dcnv3_bwd_cuda
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, err=0.0)
+    for name, side in MAIN_LAYERS:
+        x, off, m = dcnv3_inputs(gen, TRAIN_BATCH, side, side, 4, 64, 2, 1,
+                                 1, 2.0)
+        x = x.to(torch.bfloat16)
+        g = torch.randn(TRAIN_BATCH, side // 2, side // 2, 256,
+                        generator=gen, device="cuda")
+        kw = dict(stride=2, pad=1, dilation=1, group=4)
+        got = dcnv3_bwd_cuda(x, off, m, g, **kw)
+        want = dcnv3_core_bwd(x, off, m, g, **kw)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        if any((a - b).abs().max().item() > KERNEL_BAR * b.abs().max().item()
+               for a, b in zip(got, want)):
+            fail(f"dcnv3_bwd disagrees at batch {TRAIN_BATCH} on {name}")
+        del got, want
+        ms = time_ms(lambda: dcnv3_bwd_cuda(x, off, m, g, **kw), 30, flush)
+        plain_ms = time_ms(lambda: dcnv3_core_bwd(x, off, m, g, **kw), 3,
+                           flush)
+        n_bytes = (x.numel() * x.element_size() + g.numel() * 4
+                   + 2 * (off.numel() * 4 + m.numel() * 4) + x.numel() * 4)
+        ops = g.numel() * 9 * BWD_FLOP_PER_TAP_CHANNEL
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_FLOP_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        log(f"  dcnv3_bwd {name} x{tuple(x.shape)} bf16: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s; ops {ops_ms:.4f} ms), "
+            f"{n_bytes / ms / 1e6:.0f} GB/s, max_abs_err {err:.3e} [{card}]")
+        total["ms"] += ms
+        total["plain_ms"] += plain_ms
+        total["bound_ms"] += bound_ms
+        total["ops_ms"] += ops_ms
+        total["err"] = max(total["err"], err)
+    return total
+
+
+def time_train(state, step, batch, card: str) -> float:
+    """Phase 6e: the train step at batch 48 over TIMED_STEPS steps after
+    two warm-up steps: CUDA events around each step, and the host clock
+    around all of them; peak device memory.  Returns ms per step."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for _ in range(2):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pairs = []
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch, gen)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    times = sorted(s.elapsed_time(e) for s, e in pairs)
+    ms = sum(times) / len(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  train step batch {TRAIN_BATCH}: {ms:.3f} ms mean (min "
+        f"{times[0]:.3f}, max {times[-1]:.3f}; host clock {wall_ms:.3f} ms), "
+        f"{TRAIN_BATCH * 1e3 / ms:.1f} images/s, peak memory {peak:.2f} GiB "
+        f"[{card}]")
+    return ms
+
+
+def profile_train_step(state, step, batch, step_ms: float,
+                       card: str) -> None:
+    """Phase 6f: device time of one train step by op, from torch.profiler
+    over 2 steps, and the share of the unprofiled step time in which the
+    device is busy."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    reps = 2
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+    ops = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in ops
+                  if e.device_type == DeviceType.CPU) / 1e3 / reps
+    log(ops.table(sort_by="self_device_time_total", row_limit=20,
+                  max_name_column_width=48))
+    log(f"  train step batch {TRAIN_BATCH}: device busy {busy_ms:.3f} ms of "
+        f"{step_ms:.3f} ms ({100 * busy_ms / step_ms:.0f} %) [{card}]")
+
+
+def breakdown_train_step(state, batch, card: str) -> None:
+    """Phase 6g: where one train step's time goes.  The step's three parts
+    (forward with the loss; the gradients; the optimizer update) run
+    apart, synchronised at their edges: the host clock gives each part's
+    wall time (mean of 3), and a torch.profiler around each part its
+    device-busy time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from givepose_torch.core.config import LossConfig
+    from givepose_torch.losses.pose_loss import PoseLossFn
+
+    model, opt = state.model, state.optimizer
+    loss_fn = PoseLossFn(LossConfig(), device="cuda")
+    names, params = zip(*model.named_parameters())
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    ctx = {}
+
+    def forward():
+        out = model(batch, train=True, generator=gen)
+        ctx["total"] = sum(loss_fn(out, batch).values())
+
+    def backward():
+        ctx["grads"] = dict(zip(names, torch.autograd.grad(ctx["total"],
+                                                           params)))
+
+    def update():
+        opt.step(ctx["grads"])
+
+    parts = (("forward + loss", forward), ("gradients", backward),
+             ("optimizer", update))
+    wall = {name: 0.0 for name, _ in parts}
+    reps = 3
+    for _ in range(reps):
+        for name, fn in parts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall[name] += (time.perf_counter() - t0) * 1e3 / reps
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for name, fn in parts:
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU) / 1e3
+        log(f"  train step part {name:<15}: wall {wall[name]:.3f} ms, "
+            f"device busy {busy:.3f} ms [{card}]")
+    state.step += reps + 1
+
+
 def time_posenet(model, batch, card: str) -> float:
-    """Phase 5b: PoseNet forward at batch 32; returns ms per forward."""
+    """Phase 6c: PoseNet forward at batch 32; returns ms per forward."""
     import torch
 
     def fwd():
@@ -342,7 +793,7 @@ def time_posenet(model, batch, card: str) -> float:
 
 
 def profile_forward(model, batch, fwd_ms: float, card: str) -> None:
-    """Phase 5c: device time of the PoseNet forward by op, from
+    """Phase 6d: device time of the PoseNet forward by op, from
     torch.profiler over 3 forwards, and the share of the unprofiled
     forward time (``fwd_ms``) in which the device is busy."""
     import torch
@@ -378,10 +829,11 @@ def main(argv: list[str]) -> None:
     if not os.path.isdir(os.path.join(ROOT, "givepose_torch")):
         fail(f"no givepose_torch package beside {__file__}")
     sys.path.insert(0, ROOT)
-    from givepose_torch.core.config import ModelConfig
+    from givepose_torch.core.config import Config, ModelConfig
     from givepose_torch.eval.serving import (build_posenet,
                                              example_serving_batch)
     from givepose_torch.ops import _build
+    from givepose_torch.train import init_train_state, make_train_step
 
     # f32 means f32: no TF32 in cuBLAS or cuDNN (build_posenet sets the
     # same; the plain DCNv3 version's einsum is a batched matmul)
@@ -404,6 +856,7 @@ def main(argv: list[str]) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.time()
     max_err = check_kernel(gen)
+    max_bwd_err = check_bwd_kernel(gen)
     log(f"phase kernel check: ok in {time.time() - t0:.1f} s")
 
     t0 = time.time()
@@ -428,7 +881,33 @@ def main(argv: list[str]) -> None:
     tot = time_layers(gen, card)
     fwd_ms = time_posenet(model, batches[0], card)
     profile_forward(model, batches[0], fwd_ms, card)
-    log(f"phase timing: in {time.time() - t0:.1f} s")
+    log(f"phase serve timing: in {time.time() - t0:.1f} s")
+    del model, outs, batches
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    cfg = Config()
+    state = init_train_state(cfg, backbone_variant="base", seed=0)
+    perturb_dcn(state.model, seed=1)
+    step = make_train_step(state.model, cfg)
+    batch = train_batch(TRAIN_BATCH, seed=5)
+    losses, train_fwd, train_bwd = train(state, step, batch)
+    log(f"phase train: {TRAIN_STEPS} steps of batch {TRAIN_BATCH}, losses "
+        f"{[round(v, 5) for v in losses]}, dcnv3_fwd launches {train_fwd}, "
+        f"dcnv3_bwd launches {train_bwd}, in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    nan_step(state, step, batch)
+    small = {k: v[:CHECK_BATCH] for k, v in batch.items()}
+    compare_train_paths(state.model, small)
+    log(f"phase train checks: NaN step skipped; kernel vs plain DCNv3 "
+        f"path in one step, f32 and bf16, in {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    tot_bwd = time_bwd_layers(gen, card)
+    step_ms = time_train(state, step, batch, card)
+    profile_train_step(state, step, batch, step_ms, card)
+    breakdown_train_step(state, batch, card)
+    log(f"phase train timing: in {time.time() - t0:.1f} s")
 
     log(card)
     log(json.dumps({"kernels": [{
@@ -446,6 +925,22 @@ def main(argv: list[str]) -> None:
         "bound_by": "bytes" if tot["bound_ms"] > tot["ops_ms"]
         else "operations",
         # no single PyTorch call computes DCNv3
+        "library_ms": None,
+    }, {
+        "name": "dcnv3_bwd",
+        "route": "cuda",
+        "source": "givepose_torch/csrc/dcnv3_bwd.cu",
+        "replaces": "givepose_tpu/ops/dcnv3_pallas_bwd.py:32",
+        "launches": train_bwd,
+        "max_abs_err": max(max_bwd_err, tot_bwd["err"]),
+        "max_err": max(max_bwd_err, tot_bwd["err"]),
+        # per train step at batch 48: the three layers summed
+        "ms": tot_bwd["ms"],
+        "plain_ms": tot_bwd["plain_ms"],
+        "bound_ms": tot_bwd["bound_ms"],
+        "bound_by": "bytes" if tot_bwd["bound_ms"] > tot_bwd["ops_ms"]
+        else "operations",
+        # no single PyTorch call computes the DCNv3 backward
         "library_ms": None,
     }]}))
     log(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@
 //   out    (N, Ho, Wo, G*gc)   f32
 // Sampling positions follow dcnv3_sampling_locations: reference point
 // half + 0.5 + stride*o, dilation grid with x slow and y fast, offsets
-// times offset_scale, then -0.5 (grid_sample align_corners=False).
+// times offset_scale, then -0.5 (grid_sample align_corners=False), in
+// PyTorch's f32 order (dcnv3_common.cuh, shared with the backward).
 // Coordinates live in padded-input space; the pad band is read as zeros
 // without materialising the padded tensor.
 //
@@ -25,38 +26,16 @@
 // halves the dominant read.  The sampling location is computed by every
 // lane (uniform across the warp, so the corner checks do not diverge).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "dcnv3_common.cuh"
+
 #include <stdint.h>
 
 namespace {
 
-struct Params {
-  int n, h, w, ho, wo, group, gc, kernel, stride, pad, dilation;
-  float offset_scale;
-};
-
-__device__ __forceinline__ void load_vec(const float* p, float* v, int vec) {
-  if (vec == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x;
-    v[1] = t.y;
-  } else {
-    v[0] = *p;
-  }
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v,
-                                         int vec) {
-  if (vec == 2) {
-    const float2 t =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    v[0] = t.x;
-    v[1] = t.y;
-  } else {
-    v[0] = __bfloat162float(*p);
-  }
-}
+using dcnv3::Corners;
+using dcnv3::Params;
+using dcnv3::load_vec;
+using dcnv3::tap_corners;
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(256)
@@ -85,14 +64,6 @@ dcnv3_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                 static_cast<long long>(g) * p.gc;
   float* og = out + pix * c_total + static_cast<long long>(g) * p.gc;
 
-  const int half = (p.dilation * (p.kernel - 1)) / 2;
-  const float ref_x = half + 0.5f + static_cast<float>(p.stride * ow);
-  const float ref_y = half + 0.5f + static_cast<float>(p.stride * oh);
-  const float s = p.offset_scale;
-  // padded-space corner index range that lands inside the image
-  const float x_lo = -2.0f, x_hi = static_cast<float>(p.w + 2 * p.pad + 1);
-  const float y_lo = -2.0f, y_hi = static_cast<float>(p.h + 2 * p.pad + 1);
-
   for (int c0 = 0; c0 < p.gc; c0 += 32 * VEC) {
     const int c = c0 + lane * VEC;
     const bool active = c < p.gc;
@@ -101,21 +72,14 @@ dcnv3_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
     for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
 
     for (int i = 0; i < p.kernel; ++i) {          // x varies slowly
-      const float gx = static_cast<float>(-half + i * p.dilation);
       for (int j = 0; j < p.kernel; ++j) {        // y varies fast
-        const float gy = static_cast<float>(-half + j * p.dilation);
         const int tap = i * p.kernel + j;
-        const float lx = (ref_x + gx * s) + off[2 * tap] * s - 0.5f;
-        const float ly = (ref_y + gy * s) + off[2 * tap + 1] * s - 0.5f;
+        const Corners k =
+            tap_corners(p, oh, ow, i, j, off[2 * tap], off[2 * tap + 1]);
         const float m = msk[tap];
-
-        const float x0f = floorf(lx), y0f = floorf(ly);
-        const float fx = lx - x0f, fy = ly - y0f;
-        // clamping keeps far-away corners invalid and the int cast safe
-        const int x0 = static_cast<int>(fminf(fmaxf(x0f, x_lo), x_hi)) - p.pad;
-        const int y0 = static_cast<int>(fminf(fmaxf(y0f, y_lo), y_hi)) - p.pad;
-        const bool vx0 = x0 >= 0 && x0 < p.w, vx1 = x0 + 1 >= 0 && x0 + 1 < p.w;
-        const bool vy0 = y0 >= 0 && y0 < p.h, vy1 = y0 + 1 >= 0 && y0 + 1 < p.h;
+        const int x0 = k.x0, y0 = k.y0;
+        const bool vx0 = k.vx0, vx1 = k.vx1, vy0 = k.vy0, vy1 = k.vy1;
+        const float fx = k.fx, fy = k.fy;
         const float w00 = (1.0f - fx) * (1.0f - fy), w10 = fx * (1.0f - fy);
         const float w01 = (1.0f - fx) * fy, w11 = fx * fy;
 

@@ -15,6 +15,12 @@ Module paths: flax auto-names are renamed by ``_RENAMES``; leaf layouts:
   dw_kernel       (7,7,C)             -> (C,1,7,7)
   Dense kernel    (in,out)            -> (out,in)
   scale -> weight; batch_stats mean/var -> running_mean/running_var.
+
+``flax_train_state_to_torch`` carries a whole JAX ``TrainState`` across
+(params, batch_stats, the optax state of ``train/step.py:make_optimizer``
+and the step), into the form ``givepose_torch.train.TrainState``
+loads, so that the port continues a JAX run.  The optax state is read by
+attribute name; nothing of optax or JAX is imported.
 """
 
 from __future__ import annotations
@@ -83,20 +89,69 @@ def torch_key(flax_path: str) -> str:
     return (path.strip("/") + "/" + _LEAVES[leaf]).replace("/", ".")
 
 
+def _torch_tree(tree, into: dict | None = None) -> dict[str, torch.Tensor]:
+    """Flax-layout tree of arrays -> {torch key: f32 tensor}."""
+    out = {} if into is None else into
+    for path, v in _flatten(dict(tree)).items():
+        key = torch_key(path)
+        if key in out:
+            raise KeyError(f"two flax leaves map to {key}")
+        leaf = path.rsplit("/", 1)[1]
+        out[key] = torch.from_numpy(
+            np.array(_convert_leaf(leaf, v), dtype=np.float32, order="C"))
+    return out
+
+
 def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     """{'params', 'batch_stats'} of the JAX PoseNet -> torch state_dict."""
     state: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
-        for path, v in _flatten(dict(variables.get(collection, {}))).items():
-            key = torch_key(path)
-            if key in state:
-                raise KeyError(f"two flax leaves map to {key}")
-            leaf = path.rsplit("/", 1)[1]
-            state[key] = torch.from_numpy(
-                np.ascontiguousarray(_convert_leaf(leaf, v),
-                                     dtype=np.float32))
+        _torch_tree(variables.get(collection, {}), state)
     for key in list(state):
         if key.endswith(".running_mean"):
             state[key[:-len("running_mean")] + "num_batches_tracked"] = \
                 torch.tensor(0, dtype=torch.long)
     return state
+
+
+def flax_train_state_to_torch(state) -> dict:
+    """A JAX ``TrainState`` (``givepose_tpu/train/step.py``, Ranger path,
+    with or without accumulation) -> the ``state_dict`` of the port's
+    ``TrainState``.
+
+    The optax state is apply_if_finite(MultiSteps?(chain(clip,
+    lookahead(chain(GC, RAdam, schedule))))): the finite-guard counters,
+    MultiSteps' mini-step and accumulator, the lookahead's slow weights,
+    RAdam's moments, and one step count, which RAdam, the schedule and
+    the lookahead each keep and advance together."""
+    guard = state.opt_state
+    inner = guard.inner_state
+    acc, mini_step = None, 0
+    if hasattr(inner, "mini_step"):                  # MultiSteps
+        acc = _torch_tree(inner.acc_grads)
+        mini_step = int(np.asarray(inner.mini_step))
+        inner = inner.inner_opt_state
+    _clip, lookahead = inner
+    _gc, radam, schedule = lookahead.inner
+    steps = {int(np.asarray(c)) for c in (radam.step, schedule.count,
+                                          lookahead.step)}
+    if len(steps) != 1:
+        raise ValueError(f"RAdam, schedule and lookahead counts differ: "
+                         f"{steps}")
+    variables = {"params": state.params, "batch_stats": state.batch_stats}
+    return {
+        "step": int(np.asarray(state.step)),
+        "model": flax_to_state_dict(variables),
+        "optimizer": {
+            "notfinite_count": int(np.asarray(guard.notfinite_count)),
+            "total_notfinite": int(np.asarray(guard.total_notfinite)),
+            "mini_step": mini_step,
+            "acc_grads": acc,
+            "ranger": {
+                "step": steps.pop(),
+                "exp_avg": _torch_tree(radam.exp_avg),
+                "exp_avg_sq": _torch_tree(radam.exp_avg_sq),
+                "slow": _torch_tree(lookahead.slow),
+            },
+        },
+    }

@@ -181,8 +181,26 @@ class ConvPnPNet(nn.Module):
         return rot, torch.cat([t2d, z], dim=-1), pnp_feat
 
 
+def dropout_keep_mask(shape, keep_prob: float, generator: torch.Generator,
+                      device) -> torch.Tensor:
+    """Boolean keep mask of ``shape``, each entry kept with ``keep_prob``,
+    drawn from ``generator`` (which must live on ``device``)."""
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+
 class SizeHead(nn.Module):
-    """Global max-pool -> Dense -> BN (f32) -> ReLU -> Dense (f32)."""
+    """Global max-pool -> Dense -> BN (f32) -> ReLU -> Dropout 0.2 ->
+    Dense (f32).
+
+    In train mode BN normalises with the batch mean and the biased
+    two-pass variance and moves its running statistics by
+    ``ra = 0.9·ra + 0.1·batch`` (flax's update, biased variance: not
+    ``F.batch_norm``'s, which keeps the unbiased one), and dropout keeps
+    each value with probability 0.8 (mask from ``generator``, kept values
+    scaled by 1/0.8)."""
+
+    MOMENTUM = 0.9
+    DROP_RATE = 0.2
 
     def __init__(self, in_dim: int, feat_dim: int = 128, out_dim: int = 3,
                  compute_dtype: torch.dtype = torch.float32):
@@ -192,11 +210,24 @@ class SizeHead(nn.Module):
         self.bn1 = nn.BatchNorm1d(feat_dim, eps=1e-5)
         self.conv2 = Linear(feat_dim, out_dim, init_std=0.001)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         y = x.reshape(x.shape[0], -1, x.shape[-1]).amax(dim=1)
         y = self.conv1(y).float()
         bn = self.bn1
-        y = (y - bn.running_mean) * (torch.rsqrt(bn.running_var + bn.eps)
-                                     * bn.weight) + bn.bias
-        y = F.relu(y)          # dropout 0.2 is the identity at inference
+        if train:
+            mean = y.mean(0)
+            var = ((y - mean) ** 2).mean(0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+                bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        y = (y - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+        y = F.relu(y)
+        if train:
+            keep_prob = 1.0 - self.DROP_RATE
+            keep = dropout_keep_mask(y.shape, keep_prob, generator, y.device)
+            y = torch.where(keep, y / keep_prob, torch.zeros_like(y))
         return self.conv2(y)[:, :3]

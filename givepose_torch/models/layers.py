@@ -253,5 +253,5 @@ def out_size(size: int, num_stride2_layers: int) -> int:
 def check_no_drop(drop_prob: float, where: str) -> None:
     if drop_prob > 0:
         raise NotImplementedError(
-            f"DropBlock in {where} (drop_prob > 0) is training-only and "
-            "comes with the training slice (ROADMAP queue A, item 5)")
+            f"DropBlock in {where} (drop_prob > 0) is not ported yet "
+            "(ROADMAP queue A, item 10)")

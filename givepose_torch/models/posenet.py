@@ -12,7 +12,10 @@ Port of ``givepose_tpu/models/posenet.py``:
        └─ IVFC ⊕ roi_coord_2d ─ ConvPnPNet ─ rot6d, (cx,cy,z)
   rot6d → R → allo→ego with centroid-z backprojection → (R, t)
 
-Inference only: ``train=True`` raises until the training slice lands.
+``train=True`` is the training forward: SizeHead normalises with batch
+statistics (updating its running ones) and applies dropout with a mask
+drawn from the caller's ``generator``.  DropBlock and drop-path
+(``drop_prob > 0``) are not ported and raise when the model is built.
 """
 
 from __future__ import annotations
@@ -86,15 +89,15 @@ class PoseNet(nn.Module):
             dropblock_size=cfg.dropblock_size, compute_dtype=cd)
 
     def forward(self, batch: dict, train: bool = False,
-                is_wild6d: bool = False) -> dict:
-        if train:
-            raise NotImplementedError(
-                "PoseNet training comes with the training slice "
-                "(ROADMAP queue A, item 5, and kernel B2)")
+                is_wild6d: bool = False,
+                generator: torch.Generator | None = None) -> dict:
+        if train and generator is None:
+            raise ValueError("train=True needs a torch.Generator on the "
+                             "model's device for SizeHead's dropout")
         cd = self.compute_dtype
         cfg = self.cfg
         feat = self.backbone(batch["roi_img"].to(cd))        # (B,8,8,C)
-        size_resid = self.size_head(feat)
+        size_resid = self.size_head(feat, train=train, generator=generator)
 
         cx, cy, cz = self.xyz_nocs_head(feat)
         coor_nocs = torch.cat([cx, cy, cz], dim=-1)          # f32

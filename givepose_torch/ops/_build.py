@@ -2,10 +2,11 @@
 
 Each ``csrc/*.cu`` file is compiled, at first use, into a plain-C shared
 library under ``build/givepose_torch/`` at the repository root (listed in
-``.gitignore``).  The file name carries a hash of the source and of the
-flags, so an edited source is rebuilt and an unchanged one is loaded as it
-is.  ``build()`` starts one nvcc per source, all at once.  Nothing here
-runs at import time.
+``.gitignore``).  The file name carries a hash of the source, of every
+shared header (``csrc/*.cuh``) and of the flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is.  ``build()``
+starts one nvcc per source, all at once.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -54,8 +55,10 @@ def all_sources() -> list[str]:
 
 def library_path(source: str) -> Path:
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
 
 

@@ -6,7 +6,8 @@ offsets) * offset_scale, weighted by a softmax mask and summed.  This file
 is the specification the CUDA kernel (``ops/dcnv3_cuda.py``) is held
 against, and the path CPU tensors take.  It is the gather formulation:
 four ``torch.gather`` calls and a weighted sum, differentiable through
-input, offsets and mask.
+input, offsets and mask.  ``dcnv3_core_bwd`` is its backward through
+autograd: the plain version of the backward kernel.
 """
 
 from __future__ import annotations
@@ -136,3 +137,27 @@ def dcnv3_core(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     out = torch.einsum("ngqpc,ngqp->ngqc", sampled, m)
     return (out.permute(0, 2, 1, 3)
             .reshape(n, h_out, w_out, group * group_channels))
+
+
+def dcnv3_core_bwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                   grad_out: torch.Tensor, kernel: int = 3, stride: int = 1,
+                   pad: int = 1, dilation: int = 1, group: int = 4,
+                   offset_scale: float = 1.0, window: int = 0
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (d_x, d_offset, d_mask), all f32, of ``dcnv3_core`` on
+    ``x.float()``, offset and mask against ``grad_out`` (N,Ho,Wo,G*C).
+
+    The semantics of autograd through ``dcnv3_core``: ``floor`` has zero
+    gradient, so the fractional part passes d(location) straight through;
+    a corner outside the padded input contributes neither value nor
+    gradient, and gradient landing in the pad band is dropped."""
+    with torch.enable_grad():
+        xs = x.detach().float().requires_grad_(True)
+        offs = offset.detach().float().requires_grad_(True)
+        ms = mask.detach().float().requires_grad_(True)
+        out = dcnv3_core(xs, offs, ms, kernel=kernel, stride=stride,
+                         pad=pad, dilation=dilation, group=group,
+                         offset_scale=offset_scale, window=window)
+        d_x, d_off, d_m = torch.autograd.grad(out, (xs, offs, ms),
+                                              grad_out.float())
+    return d_x, d_off, d_m

@@ -1,4 +1,4 @@
-"""The DCNv3 CUDA kernel against its plain PyTorch version, on the GPU.
+"""The DCNv3 CUDA kernels against their plain PyTorch versions, on the GPU.
 
 Every test carries the ``cuda`` marker and skips without a GPU.  The file
 imports no JAX, so it also runs on a machine that has only PyTorch:
@@ -7,14 +7,16 @@ imports no JAX, so it also runs on a machine that has only PyTorch:
 
 (``--noconftest`` skips ``tests/conftest.py``, which pins JAX to the CPU.)
 Inputs are rounded to the kernel's input dtype first and handed to both
-versions, so only the f32 summation order differs: bar 1e-4 * max|ref|.
+versions, so only the f32 summation order differs (and, for the backward's
+d_x, the order of its atomic adds): bar 1e-4 * max|ref| for the output and
+for each of d_x, d_offset and d_mask.
 """
 
 import pytest
 import torch
 
-from givepose_torch.ops.dcnv3 import dcnv3_core
-from givepose_torch.ops.dcnv3_cuda import dcnv3, dcnv3_cuda
+from givepose_torch.ops.dcnv3 import dcnv3_core, dcnv3_core_bwd
+from givepose_torch.ops.dcnv3_cuda import dcnv3, dcnv3_bwd_cuda, dcnv3_cuda
 
 
 @pytest.fixture
@@ -71,3 +73,89 @@ def test_dispatch_on_card(cuda):
         dcnv3(x, off, m, stride=2, window=3)
     with pytest.raises(ValueError):
         dcnv3_cuda(x, off[..., :-2].contiguous(), m, stride=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("gc,stride,dilation,mult,h", [
+    (64, 2, 1, 2.0, 16), (64, 2, 1, 0.0, 16), (16, 1, 2, 2.0, 9),
+    (4, 2, 1, 8.0, 7), (96, 2, 1, 2.0, 8), (5, 1, 1, 2.0, 6),
+])
+def test_bwd_kernel_matches_plain(cuda, dtype, gc, stride, dilation, mult,
+                                  h):
+    """Zero offsets (mult 0) put every sample on a texel centre, where the
+    kernel's floor must pick the same neighbour as the plain version's."""
+    x, off, m = make_inputs(gc + 1, 2, h, h + 1, 4, gc, stride, dilation,
+                            mult, cuda)
+    kw = dict(stride=stride, dilation=dilation, group=4)
+    x = x.to(dtype)
+    g = torch.randn(dcnv3_core(x.float(), off, m, **kw).shape,
+                    generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    got = dcnv3_bwd_cuda(x, off, m, g, **kw)
+    want = dcnv3_core_bwd(x, off, m, g, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("d_x", "d_offset", "d_mask"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item(), \
+            name
+
+
+@pytest.mark.cuda
+def test_cuda_output_is_differentiable(cuda):
+    """On CUDA tensors dcnv3 runs DCNv3Function: the output has a grad_fn,
+    backward() launches the backward kernel once, and the gradients are
+    the plain version's; d_x comes back in x's dtype."""
+    x, off, m = make_inputs(2, 2, 16, 16, 4, 64, 2, 1, 2.0, cuda)
+    xb = x.to(torch.bfloat16).requires_grad_()
+    offr, mr = off.clone().requires_grad_(), m.clone().requires_grad_()
+    dcnv3_bwd_cuda.launches = 0
+    y = dcnv3(xb, offr, mr, stride=2)
+    assert y.grad_fn is not None
+    g = torch.randn_like(y)
+    y.backward(g)
+    assert dcnv3_bwd_cuda.launches == 1
+    assert xb.grad.dtype == torch.bfloat16
+    want = dcnv3_core_bwd(xb.detach(), off, m, g, stride=2)
+    for got, ref in ((xb.grad.float(), want[0].to(torch.bfloat16).float()),
+                     (offr.grad, want[1]), (mr.grad, want[2])):
+        assert (got - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_train_step_runs_the_kernels(cuda):
+    """A small PoseNet train step on the card launches each DCNv3 kernel
+    three times (one per MAPEncoder layer) and moves the parameters."""
+    from givepose_torch.core.config import Config, TrainConfig
+    from givepose_torch.eval.serving import example_serving_batch
+    from givepose_torch.train import init_train_state, make_train_step
+
+    cfg = Config(train=TrainConfig(batch_size=2, warmup_iters=1))
+    state = init_train_state(cfg, "custom", device=cuda,
+                             backbone_depths=(1, 1, 1, 1),
+                             backbone_dims=(16, 32, 48, 64), img_size=64)
+    b = 2
+    batch = example_serving_batch(b, img_size=64, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch.update({
+        "rotation": torch.eye(3, device=cuda).expand(b, 3, 3).contiguous(),
+        "translation": torch.rand(b, 3, generator=gen, device=cuda),
+        "real_size": torch.rand(b, 3, generator=gen, device=cuda),
+        "nocs_scale": torch.full((b,), 0.3, device=cuda),
+        "sym_info": torch.tensor([[1.0, 1, 0, 1]] * b, device=cuda),
+        "nocs_coord": torch.rand(b, 16, 16, 3, generator=gen, device=cuda),
+        "ivfc_coord": torch.rand(b, 16, 16, 3, generator=gen, device=cuda),
+        "roi_mask_output": torch.ones(b, 16, 16, 1, device=cuda),
+        "roi_ivfc_mask_output": torch.ones(b, 16, 16, 1, device=cuda),
+        "model_point": torch.rand(b, 64, 3, generator=gen, device=cuda),
+    })
+    before = [p.detach().clone() for p in state.model.parameters()]
+    step = make_train_step(state.model, cfg)
+    dcnv3_cuda.launches = dcnv3_bwd_cuda.launches = 0
+    metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    assert dcnv3_cuda.launches == 3 and dcnv3_bwd_cuda.launches == 3
+    assert torch.isfinite(metrics["total_loss"])
+    assert metrics["notfinite_total"] == 0
+    assert any(not torch.equal(a, p) for a, p in
+               zip(before, state.model.parameters()))
