@@ -160,7 +160,8 @@ def test_train_raises(batch):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import without JAX."""
+    """Every module of the port, chip_smoke.py and the GPU scripts under
+    tools/ import without JAX."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import givepose_torch\n"
@@ -168,6 +169,8 @@ def test_port_imports_no_jax():
         "'givepose_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import train_path_spread\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'givepose_tpu')]\n"
         "assert not bad, bad\n"
