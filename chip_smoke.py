@@ -8,34 +8,44 @@ Phases, each of which exits non-zero when it fails:
 1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
 2. build every CUDA kernel of ``givepose_torch/csrc`` with nvcc (sm_90a),
    one nvcc per source, all started together;
-3. hold the DCNv3 forward and backward kernels against their plain
-   PyTorch versions on the card: the three MAPEncoder shapes at batch 8,
-   edge cases (stride 1, dilation 2, 16 and 96 and 5 channels per group,
-   large offsets, an odd output size) and, for the backward, zero offsets,
-   with x in bf16 and in f32;
-4. serve batch-32 requests through full-width ConvNeXt-B PoseNet (default
-   ModelConfig, bf16, seeded random weights, DCNv3 offset and mask
-   projections perturbed so that samples land off the grid); check the
-   outputs and that the kernel ran three times per request; serve one
-   request again through the plain DCNv3 version and compare, in bf16 and
-   in an f32 copy of the model;
-5. train: the same model under the default Config (Ranger, lr 1e-3, clip
-   5, batch 48) takes 5 steps on a seeded batch (256² crops, 64² maps and
-   masks, 1024 model points, random rotations, half of them symmetric);
-   the loss stays finite, parameters and BatchNorm statistics move,
-   nothing is skipped, and each step launches each DCNv3 kernel three
-   times; then a step whose translation target holds a NaN must leave the
-   parameters untouched and count one skip; then, from the seeded weights
-   before the first step, one step's losses and gradients with the
-   kernels against the plain DCNv3 version, in an f32 copy at batch 8
-   (and the backward kernel on that step's own tensors against the plain
-   backward) and in bf16;
-6. time each DCNv3 layer, forward at the serving batch 32 and backward at
-   the training batch 48 (kernel, plain version, bound), the PoseNet
-   forward and the train step with CUDA events, break the forward's and
-   the train step's device time down by op with torch.profiler, and the
-   train step's wall and device time down by part (forward, gradients,
-   optimizer).
+3. hold each kernel against its plain PyTorch version on the card:
+   - the DCNv3 forward and backward: the three MAPEncoder shapes at batch
+     8, edge cases (stride 1, dilation 2, 16 and 96 and 5 channels per
+     group, large offsets, an odd output size) and, for the backward, zero
+     offsets, with x in bf16 and in f32;
+   - the windowed DCNv3 forward and the backward with the window (4 unless
+     said): the MAPEncoder shapes, offsets that the clamp mostly holds,
+     offsets exactly on the window's bound, a ragged last row tile,
+     column tiles, and for the backward the tie case (window 1, zero
+     offsets, where d_offset is half the unclamped one);
+   - the fused int8 ConvNeXt MLP at the stage-2 and stage-3 shapes of
+     batch 32, with and without its LayerNorm prologue;
+4. serve batch-32 requests through full-width ConvNeXt-B PoseNet (bf16,
+   seeded random weights, DCNv3 offset and mask projections perturbed so
+   that samples land off the grid), first under the default ModelConfig,
+   then under the fast configuration (``dcn_window=4``,
+   ``quant_dense=True``, O(1) layer scales); check the outputs and each
+   kernel's launches per request; serve one request again on the plain
+   versions and compare, in bf16 and in an f32 copy of the model; print
+   the int8 model's departure from the same weights served in bf16;
+5. train, first under the default Config (Ranger, lr 1e-3, clip 5, batch
+   48), then with ``dcn_window=4``: 5 steps on a seeded batch (256²
+   crops, 64² maps and masks, 1024 model points, random rotations, half
+   of them symmetric); the loss stays finite, parameters and BatchNorm
+   statistics move, nothing is skipped, and each step launches each of
+   its DCNv3 kernels three times; then a step whose translation target
+   holds a NaN must leave the parameters untouched and count one skip;
+   then, from the seeded weights before the first step, one step's
+   losses and gradients with the kernels against the plain DCNv3
+   version, in an f32 copy at batch 8 (and the backward kernel on that
+   step's own tensors against the plain backward) and in bf16;
+6. time each kernel per layer or block at the path's shapes (kernel,
+   plain version, bound; for the int8 MLP also the bf16 block MLP it
+   replaces), the PoseNet forward of both configurations and the train
+   step of both with CUDA events, break the forwards' and the default
+   train step's device time down by op with torch.profiler, and the
+   default train step's wall and device time down by part (forward,
+   gradients, optimizer).
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -44,6 +54,7 @@ The line before the last lists the kernels as JSON; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -83,6 +94,24 @@ BWD_FLOP_PER_TAP_CHANNEL = 16
 PATH_L2_BAR = 1e-3
 BF16_LOSS_RATIO = 2.0
 
+# the JAX package's fast serving configuration (README: the DCNv3
+# encoder's windowed kernel and the int8 ConvNeXt MLP)
+WINDOW = 4
+# offset projection noise of the windowed models: offsets of ~2 px, so
+# that the clamp holds some of the samples (std 0.05 gives ~0.5 px: none)
+WINDOW_OFFSET_STD = 0.2
+# int8 MLP kernel vs its plain version: both compute the same int8 values,
+# but a last bit (tanhf, an upstream order) can flip a requantized value by
+# one step: max err within MLP_FLIPS such flips plus 2 ulp of the output
+# dtype, mean err within MLP_MEAN_BAR * mean|ref| (mlp_bars)
+MLP_FLIPS = 3
+MLP_MEAN_BAR = 1e-3
+INT8_OPS_PER_S = 1979e12   # H100 SXM dense int8 tensor-core peak
+# ConvNeXt-B blocks on the int8 MLP at batch 32 (256^2 crops): (name,
+# blocks, rows M, width C); H = 4 C
+MLP_STAGES = [("stage2", 27, BATCH * 16 * 16, 512),
+              ("stage3", 3, BATCH * 8 * 8, 1024)]
+
 # DCNv3 layers of the MAPEncoder: (name, input side), k3 s2 p1, 4 x 64 ch
 MAIN_LAYERS = [("layer0", 64), ("layer1", 32), ("layer2", 16)]
 # (name, n, h, w, group, gc, stride, pad, dilation, offset multiplier)
@@ -94,6 +123,21 @@ EDGE_CASES = [
     ("odd_output", 2, 15, 13, 4, 64, 2, 1, 1, 2.0),
     ("gc96", 2, 12, 12, 4, 96, 2, 1, 1, 2.0),
     ("gc5", 2, 9, 10, 4, 5, 1, 1, 1, 2.0),
+]
+# windowed kernels: (name, n, h, w, group, gc, stride, pad, dilation,
+# offset multiplier, window, offsets exactly on the window's bound)
+WIN_EDGE_CASES = [
+    ("clamped_x4", 2, 16, 16, 4, 64, 2, 1, 1, 8.0, 4, False),
+    ("on_bound", 2, 16, 16, 4, 64, 2, 1, 1, 0.0, 4, True),
+    # 11 x 11 outputs: tiles of 3 rows (bf16) or 7 columns (f32) leave a
+    # ragged last one
+    ("ragged_tile", 2, 22, 22, 4, 64, 2, 1, 1, 2.0, 4, False),
+    ("stride1_w3", 2, 20, 20, 4, 64, 1, 1, 1, 2.0, 3, False),
+    ("dilation2", 2, 17, 19, 4, 64, 2, 2, 2, 2.0, 4, False),
+    # a 48-wide output row's slab exceeds the tile budget: column tiles
+    ("column_tiles", 2, 20, 96, 4, 64, 2, 1, 1, 4.0, 4, False),
+    ("gc96", 2, 12, 12, 4, 96, 2, 1, 1, 2.0, 4, False),
+    ("gc5", 2, 9, 10, 4, 5, 1, 1, 1, 2.0, 2, False),
 ]
 
 
@@ -209,17 +253,47 @@ def check_bwd_kernel(gen) -> float:
     return worst
 
 
-def set_dcn_impl(model, impl: str) -> None:
+def set_impl(model, impl: str) -> None:
+    """Every DCNv3 layer and every int8 ConvNeXt block of ``model`` on
+    ``impl`` (auto: the kernels; torch: the plain versions)."""
+    from givepose_torch.models.convnext import ConvNeXtBlock
     from givepose_torch.models.dcnv3_module import DCNv3
 
     for m in model.modules():
-        if isinstance(m, DCNv3):
+        if isinstance(m, (DCNv3, ConvNeXtBlock)):
             m.impl = impl
 
 
-def perturb_dcn(model, seed: int) -> None:
-    """Seeded noise on the zero-initialised offset (std 0.05) and mask
-    (std 0.5) projections, so that samples land off the regular grid."""
+def kernel_wrappers() -> dict:
+    """The wrapper of each kernel by name; each counts its launches."""
+    from givepose_torch.ops.dcnv3_cuda import (dcnv3_bwd_cuda, dcnv3_cuda,
+                                               dcnv3_win_cuda)
+    from givepose_torch.ops.quant_matmul import mlp_int8_cuda
+
+    return {"dcnv3_fwd": dcnv3_cuda, "dcnv3_win_fwd": dcnv3_win_cuda,
+            "dcnv3_bwd": dcnv3_bwd_cuda, "int8_mlp": mlp_int8_cuda}
+
+
+def reset_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
+def check_counts(counts: dict, expect: dict, what: str) -> None:
+    """Each kernel launched exactly ``expect`` times (0 if not named)."""
+    want = {k: expect.get(k, 0) for k in counts}
+    if counts != want:
+        fail(f"{what}: kernel launches {counts}, expected {want}")
+
+
+def perturb_dcn(model, seed: int, offset_std: float = 0.05) -> None:
+    """Seeded noise on the zero-initialised offset (std ``offset_std``)
+    and mask (std 0.5) projections, so that samples land off the regular
+    grid."""
     import torch
 
     from givepose_torch.models.dcnv3_module import DCNv3
@@ -228,7 +302,7 @@ def perturb_dcn(model, seed: int) -> None:
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, DCNv3):
-                for lin, std in ((m.offset, 0.05), (m.mask, 0.5)):
+                for lin, std in ((m.offset, offset_std), (m.mask, 0.5)):
                     w = torch.randn(lin.weight.shape, generator=gen) * std
                     lin.weight.copy_(w)
 
@@ -250,42 +324,40 @@ def check_outputs(out: dict, b: int) -> None:
         fail(f"R^T R - I reaches {ortho.max().item():.3e}")
 
 
-def serve(model, batches) -> tuple[list, int]:
-    """Phase 4: the main path.  Returns the outputs and the kernel's
-    launches during it."""
+def serve(model, batches, per_request: dict) -> tuple[list, dict]:
+    """Phase 4: a serving main path.  Returns the outputs and each
+    kernel's launches during it, which must be ``per_request`` times the
+    requests."""
     import torch
 
-    from givepose_torch.ops.dcnv3_cuda import dcnv3_cuda
-
-    dcnv3_cuda.launches = 0
+    reset_counts()
     with torch.inference_mode():
         outs = [model(b) for b in batches]
     torch.cuda.synchronize()
-    launches = dcnv3_cuda.launches
+    counts = read_counts()
     for out in outs:
         check_outputs(out, BATCH)
-    if launches != 3 * len(batches):
-        fail(f"dcnv3_fwd launched {launches} times for {len(batches)} "
-             f"requests, expected 3 per request")
-    return outs, launches
+    check_counts(counts, {k: v * len(batches) for k, v in
+                          per_request.items()},
+                 f"{len(batches)} requests")
+    return outs, counts
 
 
 def run_plain(model, batch) -> dict:
-    """Serve one request with the DCNv3 layers on the plain version."""
+    """Serve one request with the DCNv3 layers and the int8 MLPs on the
+    plain versions."""
     import torch
 
-    from givepose_torch.ops.dcnv3_cuda import dcnv3_cuda
-
-    before = dcnv3_cuda.launches
-    set_dcn_impl(model, "torch")
+    before = read_counts()
+    set_impl(model, "torch")
     try:
         with torch.inference_mode():
             plain = model(batch)
         torch.cuda.synchronize()
     finally:
-        set_dcn_impl(model, "auto")
-    if dcnv3_cuda.launches != before:
-        fail("dcn_impl='torch' launched the kernel")
+        set_impl(model, "auto")
+    if read_counts() != before:
+        fail("impl='torch' launched a kernel")
     return plain
 
 
@@ -293,8 +365,10 @@ def max_diff(a, b) -> float:
     return (a - b).abs().max().item()
 
 
-def compare_paths(model, batch, out) -> None:
-    """The kernel path against the plain DCNv3 path, on the card.
+def compare_paths(model, batch, out, cfg=None) -> None:
+    """The kernel path against the plain path (DCNv3 and, with
+    ``quant_dense``, the int8 MLP), on the card, for the model of ``cfg``
+    (default ``ModelConfig()``).
 
     In f32 (the same weights in a float32 model, TF32 off) the two differ
     by summation order only and are held to the repo's PoseNet parity bars
@@ -310,8 +384,8 @@ def compare_paths(model, batch, out) -> None:
     from givepose_torch.eval.serving import build_posenet
 
     plain = run_plain(model, batch)
-    m32 = build_posenet(ModelConfig(compute_dtype="float32"),
-                        backbone_variant="base",
+    cfg32 = dataclasses.replace(cfg or ModelConfig(), compute_dtype="float32")
+    m32 = build_posenet(cfg32, backbone_variant="base",
                         state_dict=model.state_dict())
     with torch.inference_mode():
         out32 = m32(batch)
@@ -324,7 +398,7 @@ def compare_paths(model, batch, out) -> None:
         d16 = (out[k] - plain[k]).abs()
         e16 = (plain[k] - plain32[k]).abs()
         ok = d32 <= bar32 and d16.mean().item() <= e16.mean().item()
-        log(f"  kernel vs plain DCNv3 path: {k:<9} f32 max {d32:.3e} "
+        log(f"  kernel vs plain path: {k:<9} f32 max {d32:.3e} "
             f"(bar {bar32:.3e}); bf16 mean {d16.mean().item():.3e} "
             f"(bar = bf16 vs f32 mean {e16.mean().item():.3e}), bf16 max "
             f"{d16.max().item():.3e} (bf16 vs f32 max "
@@ -390,28 +464,25 @@ def moved(before: dict, model, running: bool) -> bool:
                if ("running_" in k) == running)
 
 
-def train(state, step, batch) -> tuple[list, int, int]:
-    """Phase 5: the training main path, TRAIN_STEPS steps at batch 48.
-    Returns the total losses and the launches of each kernel."""
+def train(state, step, batch, per_step: dict) -> tuple[list, dict]:
+    """Phase 5: a training main path, TRAIN_STEPS steps at batch 48.
+    Returns the total losses and each kernel's launches, which must be
+    ``per_step`` times the steps."""
     import torch
-
-    from givepose_torch.ops.dcnv3_cuda import dcnv3_bwd_cuda, dcnv3_cuda
 
     before = snapshot(state.model)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    dcnv3_cuda.launches = 0
-    dcnv3_bwd_cuda.launches = 0
+    reset_counts()
     metrics = [step(state, batch, gen) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
-    fwd, bwd = dcnv3_cuda.launches, dcnv3_bwd_cuda.launches
+    counts = read_counts()
     losses = [m["total_loss"].item() for m in metrics]
     if not all(math.isfinite(v) for v in losses):
         fail(f"train loss is not finite: {losses}")
     if metrics[-1]["notfinite_total"] != 0:
         fail(f"{metrics[-1]['notfinite_total']} steps were skipped")
-    if fwd != 3 * TRAIN_STEPS or bwd != 3 * TRAIN_STEPS:
-        fail(f"dcnv3_fwd launched {fwd} and dcnv3_bwd {bwd} times in "
-             f"{TRAIN_STEPS} steps, expected 3 each per step")
+    check_counts(counts, {k: v * TRAIN_STEPS for k, v in per_step.items()},
+                 f"{TRAIN_STEPS} train steps")
     if not moved(before, state.model, running=False):
         fail("the parameters did not move")
     if not moved(before, state.model, running=True):
@@ -422,7 +493,7 @@ def train(state, step, batch) -> tuple[list, int, int]:
                 f"{k} {m[k].item():.4f}" for k in
                 ("Rot1", "Tran", "Size", "Point_matching", "nocs_coor",
                  "sp2d_coor")))
-    return losses, fwd, bwd
+    return losses, counts
 
 
 def nan_step(state, step, batch) -> None:
@@ -486,7 +557,7 @@ def dcn_backward(replace=None):
         else:
             x, offset, mask = ctx.saved_tensors
             d_x, d_off, d_m = replace(x, offset, mask, grad_out, **ctx.kw)
-            grads = (d_x.to(x.dtype), d_off, d_m) + (None,) * 6
+            grads = (d_x.to(x.dtype), d_off, d_m) + (None,) * 7
         calls.append((ctx.saved_tensors, grad_out, dict(ctx.kw), grads[:3]))
         return grads
 
@@ -549,10 +620,12 @@ def grad_error(grads: dict, ref: dict) -> tuple[float, str, float]:
     return worst, worst_key, math.sqrt(num / den)
 
 
-def compare_train_paths(sd: dict, batch) -> None:
+def compare_train_paths(sd: dict, batch, cfg=None) -> None:
     """One step's losses and gradients with the DCNv3 kernels against the
-    plain DCNv3 version, from the weights ``sd`` (the seeded state before
-    any training step), on the same batch and dropout mask, with cuDNN
+    plain DCNv3 version, for the model of ``cfg`` (default
+    ``ModelConfig()``; with ``dcn_window`` the windowed kernels), from the
+    weights ``sd`` (the seeded state before any training step), on the
+    same batch and dropout mask, with cuDNN
     held to deterministic algorithms.
 
     At this random initialisation the step's gradients are ill-conditioned
@@ -601,25 +674,27 @@ def compare_train_paths(sd: dict, batch) -> None:
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        m = build_posenet(ModelConfig(compute_dtype="float32"), state_dict=sd)
+        cfg = cfg or ModelConfig()
+        m = build_posenet(dataclasses.replace(cfg, compute_dtype="float32"),
+                          state_dict=sd)
         with dcn_backward() as calls:
             l_k, g_k = step_grads(m, loss_fn, slices[0], seed=9)
         check_recorded_bwd(calls)
         del calls
         with dcn_backward(replace=dcnv3_core_bwd):
             _, g_kp = step_grads(m, loss_fn, slices[0], seed=9)
-        set_dcn_impl(m, "torch")
+        set_impl(m, "torch")
         l_p, g_p = step_grads(m, loss_fn, slices[0], seed=9)
         l32 = [step_losses(m, loss_fn, s, seed=9) for s in slices]
         del m
-        m = build_posenet(ModelConfig(compute_dtype="bfloat16"),
+        m = build_posenet(dataclasses.replace(cfg, compute_dtype="bfloat16"),
                           state_dict=sd)
         with dcn_backward() as calls:
             step_grads(m, loss_fn, slices[0], seed=9)
         check_recorded_bwd(calls)
         del calls
         l16k = [step_losses(m, loss_fn, s, seed=9) for s in slices]
-        set_dcn_impl(m, "torch")
+        set_impl(m, "torch")
         l16p = [step_losses(m, loss_fn, s, seed=9) for s in slices]
         del m
     finally:
@@ -677,26 +752,36 @@ def time_ms(fn, reps: int, flush=None) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def time_layers(gen, card: str) -> dict:
-    """Phase 6a: each MAPEncoder DCNv3 layer at batch 32, bf16 x."""
+def time_layers(gen, card: str, window: int = 0, reps: int = 50) -> dict:
+    """Phase 6a: each MAPEncoder DCNv3 layer at batch 32, bf16 x, offsets
+    N(0, 2 px); with a window, the windowed kernel."""
     import torch
 
     from givepose_torch.ops.dcnv3 import dcnv3_core
-    from givepose_torch.ops.dcnv3_cuda import dcnv3_cuda
+    from givepose_torch.ops.dcnv3_cuda import dcnv3_cuda, dcnv3_win_cuda
 
+    name_k = "dcnv3_win_fwd" if window else "dcnv3_fwd"
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, err=0.0)
     for name, side in MAIN_LAYERS:
         x, off, m = dcnv3_inputs(gen, BATCH, side, side, 4, 64, 2, 1, 1, 2.0)
         x = x.to(torch.bfloat16)
         kw = dict(stride=2, pad=1, dilation=1, group=4)
-        out = dcnv3_cuda(x, off, m, **kw)
+        if window:
+            kw["window"] = window
+
+            def kernel():
+                return dcnv3_win_cuda(x, off, m, **kw)
+        else:
+            def kernel():
+                return dcnv3_cuda(x, off, m, **kw)
+        out = kernel()
         ref = dcnv3_core(x.float(), off, m, **kw)
         err = (out - ref).abs().max().item()
         if err > KERNEL_BAR * ref.abs().max().item():
-            fail(f"dcnv3_fwd disagrees at batch {BATCH} on {name}")
-        ms = time_ms(lambda: dcnv3_cuda(x, off, m, **kw), 50, flush)
-        plain_ms = time_ms(lambda: dcnv3_core(x.float(), off, m, **kw), 5,
+            fail(f"{name_k} disagrees at batch {BATCH} on {name}")
+        ms = time_ms(kernel, reps, flush)
+        plain_ms = time_ms(lambda: dcnv3_core(x.float(), off, m, **kw), 3,
                            flush)
         n_bytes = (x.numel() * x.element_size() + off.numel() * 4
                    + m.numel() * 4 + out.numel() * 4)
@@ -704,23 +789,31 @@ def time_layers(gen, card: str) -> dict:
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_FLOP_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        log(f"  dcnv3_fwd {name} x{tuple(x.shape)} bf16: kernel {ms:.4f} ms, "
+        share = ""
+        if window:
+            held = clamp_share(off, side, side, 2, 1, 1, 4, window)
+            share = f", clamp holds {100 * held:.1f} % of samples"
+        log(f"  {name_k} {name} x{tuple(x.shape)} bf16: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s; ops {ops_ms:.4f} ms), "
-            f"{n_bytes / ms / 1e6:.0f} GB/s, max_abs_err {err:.3e} [{card}]")
+            f"{n_bytes / ms / 1e6:.0f} GB/s, max_abs_err {err:.3e}{share} "
+            f"[{card}]")
         total["ms"] += ms
         total["plain_ms"] += plain_ms
         total["bound_ms"] += bound_ms
         total["ops_ms"] += ops_ms
+        total["err"] = max(total["err"], err)
     return total
 
 
-def time_bwd_layers(gen, card: str) -> dict:
+def time_bwd_layers(gen, card: str, window: int = 0,
+                    reps: int = 30) -> dict:
     """Phase 6b: the backward of each MAPEncoder DCNv3 layer at the
-    training batch 48, bf16 x.  Bytes: x, grad_out, offset, mask read once,
-    d_x (f32), d_offset, d_mask written once; zeroing d_x before the
-    kernel and casting it to bf16 after are not counted (they are outside
-    the kernel, and ``ms`` does not include them either)."""
+    training batch 48, bf16 x, with ``window`` (0: unbounded).  Bytes: x,
+    grad_out, offset, mask read once, d_x (f32), d_offset, d_mask written
+    once; zeroing d_x before the kernel and casting it to bf16 after are
+    not counted (they are outside the kernel, and ``ms`` does not include
+    them either)."""
     import torch
 
     from givepose_torch.ops.dcnv3 import dcnv3_core_bwd
@@ -734,15 +827,16 @@ def time_bwd_layers(gen, card: str) -> dict:
         x = x.to(torch.bfloat16)
         g = torch.randn(TRAIN_BATCH, side // 2, side // 2, 256,
                         generator=gen, device="cuda")
-        kw = dict(stride=2, pad=1, dilation=1, group=4)
+        kw = dict(stride=2, pad=1, dilation=1, group=4, window=window)
         got = dcnv3_bwd_cuda(x, off, m, g, **kw)
         want = dcnv3_core_bwd(x, off, m, g, **kw)
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
         if any((a - b).abs().max().item() > KERNEL_BAR * b.abs().max().item()
                for a, b in zip(got, want)):
-            fail(f"dcnv3_bwd disagrees at batch {TRAIN_BATCH} on {name}")
+            fail(f"dcnv3_bwd (window {window}) disagrees at batch "
+                 f"{TRAIN_BATCH} on {name}")
         del got, want
-        ms = time_ms(lambda: dcnv3_bwd_cuda(x, off, m, g, **kw), 30, flush)
+        ms = time_ms(lambda: dcnv3_bwd_cuda(x, off, m, g, **kw), reps, flush)
         plain_ms = time_ms(lambda: dcnv3_core_bwd(x, off, m, g, **kw), 3,
                            flush)
         n_bytes = (x.numel() * x.element_size() + g.numel() * 4
@@ -751,7 +845,8 @@ def time_bwd_layers(gen, card: str) -> dict:
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_FLOP_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        log(f"  dcnv3_bwd {name} x{tuple(x.shape)} bf16: kernel {ms:.4f} ms, "
+        log(f"  dcnv3_bwd window {window} {name} x{tuple(x.shape)} bf16: "
+            f"kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s; ops {ops_ms:.4f} ms), "
             f"{n_bytes / ms / 1e6:.0f} GB/s, max_abs_err {err:.3e} [{card}]")
@@ -761,6 +856,17 @@ def time_bwd_layers(gen, card: str) -> dict:
         total["ops_ms"] += ops_ms
         total["err"] = max(total["err"], err)
     return total
+
+
+def device_busy_ms(prof) -> float:
+    """Device time of every kernel, copy and fill in a torch.profiler
+    profile, in ms, summed over the device events themselves: a kernel
+    launched through ctypes, as the port's are, has no host op to carry
+    its time."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
 
 
 def time_train(state, step, batch, card: str) -> float:
@@ -801,7 +907,6 @@ def profile_train_step(state, step, batch, step_ms: float,
     over 2 steps, and the share of the unprofiled step time in which the
     device is busy."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     reps = 2
@@ -812,8 +917,7 @@ def profile_train_step(state, step, batch, step_ms: float,
             step(state, batch, gen)
         torch.cuda.synchronize()
     ops = prof.key_averages()
-    busy_ms = sum(e.self_device_time_total for e in ops
-                  if e.device_type == DeviceType.CPU) / 1e3 / reps
+    busy_ms = device_busy_ms(prof) / reps
     log(ops.table(sort_by="self_device_time_total", row_limit=20,
                   max_name_column_width=48))
     log(f"  train step batch {TRAIN_BATCH}: device busy {busy_ms:.3f} ms of "
@@ -827,7 +931,6 @@ def breakdown_train_step(state, batch, card: str) -> None:
     wall time (mean of 3), and a torch.profiler around each part its
     device-busy time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     from givepose_torch.core.config import LossConfig
@@ -866,8 +969,7 @@ def breakdown_train_step(state, batch, card: str) -> None:
         with torch.profiler.profile(activities=acts) as prof:
             fn()
             torch.cuda.synchronize()
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CPU) / 1e3
+        busy = device_busy_ms(prof)
         log(f"  train step part {name:<15}: wall {wall[name]:.3f} ms, "
             f"device busy {busy:.3f} ms [{card}]")
     state.step += reps + 1
@@ -895,7 +997,6 @@ def profile_forward(model, batch, fwd_ms: float, card: str) -> None:
     torch.profiler over 3 forwards, and the share of the unprofiled
     forward time (``fwd_ms``) in which the device is busy."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     reps = 3
@@ -906,14 +1007,346 @@ def profile_forward(model, batch, fwd_ms: float, card: str) -> None:
                 model(batch)
             torch.cuda.synchronize()
     ops = prof.key_averages()
-    # device time is attributed to the host op that launched it; summing
-    # over host ops counts every kernel once
-    busy_ms = sum(e.self_device_time_total for e in ops
-                  if e.device_type == DeviceType.CPU) / 1e3 / reps
+    busy_ms = device_busy_ms(prof) / reps
     log(ops.table(sort_by="self_device_time_total", row_limit=15,
                   max_name_column_width=48))
     log(f"  PoseNet forward batch {BATCH}: device busy {busy_ms:.3f} ms of "
         f"{fwd_ms:.3f} ms ({100 * busy_ms / fwd_ms:.0f} %) [{card}]")
+
+
+def on_bound(off, window: int):
+    """Offsets (offset_scale 1, dilation 1) that put every tap of every
+    query exactly on the window's bound: x on the high side, y on the low
+    side."""
+    import torch
+
+    lin = torch.arange(3, device=off.device, dtype=off.dtype) - 1
+    gx, gy = lin.repeat_interleave(3), lin.repeat(3)
+    o = off.reshape(*off.shape[:3], -1, 9, 2).clone()
+    o[..., 0] = window - gx
+    o[..., 1] = -window - gy
+    return o.reshape(off.shape)
+
+
+def clamp_share(off, h, w, stride, pad, dilation, group, window) -> float:
+    """Share of samples (k3, offset_scale 1) that the window clamp moves
+    or holds on its bound, along x or y."""
+    import torch
+
+    from givepose_torch.ops.dcnv3 import dcnv3_sampling_locations
+
+    ho, wo = off.shape[1:3]
+    loc = dcnv3_sampling_locations(off, h + 2 * pad, w + 2 * pad, 3, stride,
+                                   dilation, group, 1.0)
+    half = dilation
+    cx = half + stride * torch.arange(wo, device=off.device)
+    cy = half + stride * torch.arange(ho, device=off.device)
+    cx = cx[None, None, :, None, None]
+    cy = cy[None, :, None, None, None]
+    held = (((loc[..., 0] - cx).abs() >= window)
+            | ((loc[..., 1] - cy).abs() >= window))
+    return held.float().mean().item()
+
+
+def win_cases() -> list:
+    """The windowed kernels' checks: the MAPEncoder shapes at batch 8,
+    then WIN_EDGE_CASES."""
+    return ([(name, CHECK_BATCH, s, s, 4, 64, 2, 1, 1, 2.0, WINDOW, False)
+             for name, s in MAIN_LAYERS] + WIN_EDGE_CASES)
+
+
+def check_win_kernel(gen) -> float:
+    """Phase 3, windowed forward against the plain windowed dcnv3_core,
+    x in bf16 and f32, within KERNEL_BAR * max|ref|; returns the largest
+    max abs error."""
+    import torch
+
+    from givepose_torch.ops.dcnv3 import dcnv3_core
+    from givepose_torch.ops.dcnv3_cuda import dcnv3_win_cuda
+
+    worst = 0.0
+    for (name, n, h, w, group, gc, stride, pad, dil, mult, window,
+         bound) in win_cases():
+        x, off, m = dcnv3_inputs(gen, n, h, w, group, gc, stride, pad, dil,
+                                 mult)
+        if bound:
+            off = on_bound(off, window)
+        share = clamp_share(off, h, w, stride, pad, dil, group, window)
+        kw = dict(stride=stride, pad=pad, dilation=dil, group=group,
+                  window=window)
+        for dtype in (torch.bfloat16, torch.float32):
+            xd = x.to(dtype)
+            out = dcnv3_win_cuda(xd, off, m, **kw)
+            ref = dcnv3_core(xd.float(), off, m, **kw)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            bar = KERNEL_BAR * ref.abs().max().item()
+            worst = max(worst, err)
+            log(f"  dcnv3_win_fwd {name:<13} x{tuple(x.shape)} window "
+                f"{window} {str(dtype).split('.')[1]:<8} clamp holds "
+                f"{100 * share:5.1f} % max_abs_err {err:.3e} (bar {bar:.3e}) "
+                f"{'ok' if err <= bar else 'FAIL'}")
+            if err > bar:
+                fail(f"dcnv3_win_fwd disagrees with dcnv3_core on {name} "
+                     f"{dtype}")
+    return worst
+
+
+def check_win_bwd_kernel(gen) -> float:
+    """Phase 3, the backward kernel with a window against autograd of the
+    plain windowed version, each of d_x, d_offset, d_mask within
+    KERNEL_BAR * max|ref|, including the tie case (window 1, zero
+    offsets: every corner tap on the bound, where d_offset is half the
+    unclamped one); returns the largest max abs error."""
+    import torch
+
+    from givepose_torch.ops.dcnv3 import dcnv3_core_bwd
+    from givepose_torch.ops.dcnv3_cuda import dcnv3_bwd_cuda
+
+    cases = win_cases() + [
+        ("tie_w1", CHECK_BATCH, 64, 64, 4, 64, 2, 1, 1, 0.0, 1, False),
+        ("tie_w1_s1", 2, 20, 20, 4, 64, 1, 1, 1, 0.0, 1, False)]
+    worst = 0.0
+    for (name, n, h, w, group, gc, stride, pad, dil, mult, window,
+         bound) in cases:
+        x, off, m = dcnv3_inputs(gen, n, h, w, group, gc, stride, pad, dil,
+                                 mult)
+        if bound:
+            off = on_bound(off, window)
+        g = torch.randn(n, out_side(h, stride, pad, dil),
+                        out_side(w, stride, pad, dil), group * gc,
+                        generator=gen, device=gen.device)
+        kw = dict(stride=stride, pad=pad, dilation=dil, group=group,
+                  window=window)
+        for dtype in (torch.bfloat16, torch.float32):
+            xd = x.to(dtype)
+            got = dcnv3_bwd_cuda(xd, off, m, g, **kw)
+            want = dcnv3_core_bwd(xd, off, m, g, **kw)
+            torch.cuda.synchronize()
+            errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+            bars = [KERNEL_BAR * b.abs().max().item() for b in want]
+            ok = all(e <= bar for e, bar in zip(errs, bars))
+            worst = max(worst, *errs)
+            log(f"  dcnv3_bwd {name:<13} x{tuple(x.shape)} window {window} "
+                f"{str(dtype).split('.')[1]:<8} max_abs_err d_x "
+                f"{errs[0]:.3e} (bar {bars[0]:.3e}) d_offset {errs[1]:.3e} "
+                f"(bar {bars[1]:.3e}) d_mask {errs[2]:.3e} (bar "
+                f"{bars[2]:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"dcnv3_bwd disagrees with dcnv3_core_bwd on {name} "
+                     f"{dtype}")
+    return worst
+
+
+def mlp_inputs(gen, m: int, c: int, dtype) -> dict:
+    """A ConvNeXt block's int8-MLP operands: the raw depthwise-conv map y
+    and the residual in ``dtype``, LN statistics of y, LN affine near
+    (1, 0), weights N(0, 1/fan_in), small biases and O(1) layer scales
+    U(0.2, 1)."""
+    import torch
+
+    hd = 4 * c
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=gen.device) * scale
+
+    yc = randn(m, c, scale=2.0) + randn(m, 1)
+    mu = yc.mean(-1, keepdim=True)
+    d = yc - mu
+    rsig = torch.rsqrt((d * d).mean(-1, keepdim=True) + 1e-6)
+    return dict(y=yc.to(dtype), residual=randn(m, c).to(dtype),
+                w0=randn(c, hd, scale=c ** -0.5), b0=randn(hd, scale=0.02),
+                w1=randn(hd, c, scale=hd ** -0.5), b1=randn(c, scale=0.02),
+                gamma=0.2 + 0.8 * torch.rand(c, generator=gen,
+                                             device=gen.device),
+                ln=(mu, rsig, 1 + randn(c, scale=0.1), randn(c, scale=0.1)))
+
+
+def mlp_operands(inp: dict, with_ln: bool) -> tuple:
+    """The kernel's operands (weights quantized and transposed, gamma
+    folded) and the plain version's, from ``mlp_inputs``."""
+    from givepose_torch.ops.quant_matmul import quantize_weights
+
+    w0q, s0 = quantize_weights(inp["w0"])
+    w1q, s1 = quantize_weights(inp["w1"], inp["gamma"])
+    b1g = inp["b1"] * inp["gamma"]
+    ln = inp["ln"] if with_ln else None
+    kernel = (inp["y"], inp["residual"], w0q.t().contiguous(), s0, inp["b0"],
+              w1q.t().contiguous(), s1, b1g, "gelu_tanh", ln)
+    plain = (inp["y"], inp["residual"], w0q, s0, inp["b0"], w1q, s1, b1g,
+             "gelu_tanh", inp["y"].dtype, ln)
+    return kernel, plain
+
+
+def mlp_bars(plain_args, ref) -> tuple[float, float]:
+    """(max bar, mean bar) of the int8 MLP kernel against its plain
+    version: MLP_FLIPS one-step flips of a requantized hidden value
+    (``requant_flip``) plus 2 ulp of the output dtype at max|ref|;
+    MLP_MEAN_BAR * mean|ref|."""
+    import torch
+
+    from givepose_torch.ops.quant_matmul import requant_flip
+
+    y, _, w0q, s0, b0, w1q, s1, _, act, _, ln = plain_args
+    flip = requant_flip(y, w0q, s0, b0, w1q, s1, act, ln)
+    ulp = 2.0 ** -7 if ref.dtype == torch.bfloat16 else 2.0 ** -23
+    top = ref.float().abs()
+    return (MLP_FLIPS * flip + 2 * ulp * top.max().item(),
+            MLP_MEAN_BAR * top.mean().item())
+
+
+def check_mlp_kernel(gen) -> float:
+    """Phase 3, the fused int8 MLP kernel against its plain version at the
+    stage-2 and stage-3 shapes of batch 32, with the LN prologue (the
+    model's variant) and without, in bf16 and (with LN) f32; returns the
+    largest max abs error."""
+    import torch
+
+    from givepose_torch.ops.quant_matmul import mlp_int8_cuda, mlp_int8_plain
+
+    worst = 0.0
+    for name, _, m, c in MLP_STAGES:
+        for with_ln, dtype in ((True, torch.bfloat16), (False, torch.bfloat16),
+                               (True, torch.float32)):
+            inp = mlp_inputs(gen, m, c, dtype)
+            kernel_args, plain_args = mlp_operands(inp, with_ln)
+            out = mlp_int8_cuda(*kernel_args)
+            ref = mlp_int8_plain(*plain_args)
+            torch.cuda.synchronize()
+            d = (out.float() - ref.float()).abs()
+            max_bar, mean_bar = mlp_bars(plain_args, ref)
+            err, mean = d.max().item(), d.mean().item()
+            ok = err <= max_bar and mean <= mean_bar
+            worst = max(worst, err)
+            moved = (ref.float() - inp["residual"].float()).abs().mean()
+            # not vacuous: the MLP branch shows in the output
+            ok = ok and moved.item() > 1e-2
+            log(f"  int8_mlp {name} ({m}, {c}) "
+                f"{'ln ' if with_ln else 'raw'} {str(dtype).split('.')[1]:<8} "
+                f"max_abs_err {err:.3e} (bar {max_bar:.3e}) mean {mean:.3e} "
+                f"(bar {mean_bar:.3e}), {int((d > 0).sum())} of {d.numel()} "
+                f"outputs differ; MLP branch mean |out - res| "
+                f"{moved.item():.3f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"int8_mlp disagrees with mlp_int8_plain on {name} "
+                     f"{dtype} {'ln' if with_ln else 'raw'}")
+    return worst
+
+
+def set_layer_scales(model, seed: int) -> None:
+    """Seeded O(1) layer scales, U(0.2, 1), in every ConvNeXt block: the
+    init's 1e-6 would hide the MLP branches, and with them the int8
+    kernel."""
+    import torch
+
+    from givepose_torch.models.convnext import ConvNeXtBlock
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, ConvNeXtBlock):
+                m.gamma.copy_(0.2 + 0.8 * torch.rand(m.gamma.shape,
+                                                     generator=gen))
+
+
+def model_clamp_share(model, batch, window: int, train: bool) -> list:
+    """Share of each DCNv3 layer's samples that the window clamp holds in
+    one forward of ``batch``."""
+    import torch
+
+    from givepose_torch.models.dcnv3_module import DCNv3
+
+    offsets = []
+    hooks = [m.offset.register_forward_hook(
+        lambda mod, inp, out: offsets.append(out.detach().float()))
+        for m in model.modules() if isinstance(m, DCNv3)]
+    try:
+        with torch.no_grad():
+            model(batch, train=train, generator=torch.Generator(
+                device="cuda").manual_seed(0) if train else None)
+    finally:
+        for h in hooks:
+            h.remove()
+    return [clamp_share(o, 2 * o.shape[1], 2 * o.shape[2], 2, 1, 1, 4,
+                        window) for o in offsets]
+
+
+def departure(model, cfg, batch, out) -> None:
+    """The int8 model's outputs against the same weights served without
+    int8 (bf16, same window): what int8 serving changes.  Fails if the
+    NOCS map does not move by more than 1e-6 (the int8 path did not
+    show)."""
+    import torch
+
+    from givepose_torch.eval.serving import build_posenet
+
+    m16 = build_posenet(dataclasses.replace(cfg, quant_dense=False),
+                        backbone_variant="base",
+                        state_dict=model.state_dict())
+    with torch.inference_mode():
+        ref = m16(batch)
+    del m16
+    for k in PARITY_BARS:
+        d = (out[k] - ref[k]).abs()
+        log(f"  int8 vs bf16 model: {k:<9} max {d.max().item():.3e} mean "
+            f"{d.mean().item():.3e} (max|bf16| "
+            f"{ref[k].abs().max().item():.3e})")
+    if (out["nocs_coor"] - ref["nocs_coor"]).abs().max().item() <= 1e-6:
+        fail("the int8 model serves what the bf16 model does")
+
+
+def time_mlp(gen, card: str, reps: int = 20) -> dict:
+    """Phase 6: the int8 MLP kernel (LN variant, bf16) per block of each
+    int8 stage at batch 32, against its bound (operations: 16 M C^2 int8
+    ops at 1979 TOP/s; bytes: y, residual, out in bf16, both int8 weight
+    matrices, LN statistics), its plain version, and the bf16 block MLP
+    it replaces (fc1 -> tanh GELU -> fc2 -> x + y * gamma, as the
+    unquantized ConvNeXt block runs it, without the LN), summed per
+    forward over the 27 + 3 blocks.  Weights are quantized outside the
+    timed call."""
+    import torch
+    import torch.nn.functional as F
+
+    from givepose_torch.ops.quant_matmul import mlp_int8_cuda, mlp_int8_plain
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                 bf16_ms=0.0)
+    for name, blocks, m, c in MLP_STAGES:
+        inp = mlp_inputs(gen, m, c, torch.bfloat16)
+        kernel_args, plain_args = mlp_operands(inp, True)
+        ms = time_ms(lambda: mlp_int8_cuda(*kernel_args), reps, flush)
+        plain_ms = time_ms(lambda: mlp_int8_plain(*plain_args), 3, flush)
+        w0 = inp["w0"].t().contiguous().to(torch.bfloat16)
+        w1 = inp["w1"].t().contiguous().to(torch.bfloat16)
+        b0, b1 = inp["b0"].to(torch.bfloat16), inp["b1"].to(torch.bfloat16)
+        gamma = inp["gamma"].to(torch.bfloat16)
+        y, res = inp["y"], inp["residual"]
+
+        def bf16_mlp():
+            h = F.gelu(F.linear(y, w0, b0), approximate="tanh")
+            return res + F.linear(h, w1, b1) * gamma
+
+        bf16_ms = time_ms(bf16_mlp, reps, flush)
+        ops = 16 * m * c * c
+        n_bytes = 3 * m * c * 2 + 8 * c * c + 8 * m + 8 * 4 * c + 16 * c
+        ops_ms = ops / INT8_OPS_PER_S * 1e3
+        bound_ms = max(ops_ms, n_bytes / HBM_BYTES_PER_S * 1e3)
+        log(f"  int8_mlp {name} ({m}, {c}) bf16 + LN, per block: kernel "
+            f"{ms:.4f} ms ({ops / ms / 1e9:.0f} TOP/s), plain {plain_ms:.4f}"
+            f" ms, bound {bound_ms:.4f} ms (ops {ops_ms:.4f} ms at 1979 "
+            f"TOP/s; {n_bytes / 1e6:.1f} MB at 3.35 TB/s), bf16 block MLP "
+            f"{bf16_ms:.4f} ms; x {blocks} blocks [{card}]")
+        total["ms"] += blocks * ms
+        total["plain_ms"] += blocks * plain_ms
+        total["bound_ms"] += blocks * bound_ms
+        total["ops_ms"] += blocks * ops_ms
+        total["bf16_ms"] += blocks * bf16_ms
+    log(f"  int8_mlp per forward (27 + 3 blocks): kernel {total['ms']:.4f} "
+        f"ms, bound {total['bound_ms']:.4f} ms, plain "
+        f"{total['plain_ms']:.4f} ms, bf16 block MLPs {total['bf16_ms']:.4f}"
+        f" ms [{card}]")
+    return total
 
 
 def main(argv: list[str]) -> None:
@@ -934,10 +1367,12 @@ def main(argv: list[str]) -> None:
     from givepose_torch.train import init_train_state, make_train_step
 
     # f32 means f32: no TF32 in cuBLAS or cuDNN (build_posenet sets the
-    # same; the plain DCNv3 version's einsum is a batched matmul)
+    # same; the plain DCNv3 version's einsum is a batched matmul, and the
+    # int8 blocks' depthwise conv is an f32 cuDNN conv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    start = time.time()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -949,14 +1384,19 @@ def main(argv: list[str]) -> None:
     log(f"phase build: {_build.all_sources()} in {time.time() - t0:.1f} s")
     for src, report in _build.build_logs.items():
         log(f"  ptxas {src}:\n" + "\n".join(
-            "    " + ln for ln in report.strip().splitlines()))
+            "    " + ln for ln in report.strip().splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling" in ln))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.time()
     max_err = check_kernel(gen)
     max_bwd_err = check_bwd_kernel(gen)
+    win_err = check_win_kernel(gen)
+    win_bwd_err = check_win_bwd_kernel(gen)
+    mlp_err = check_mlp_kernel(gen)
     log(f"phase kernel check: ok in {time.time() - t0:.1f} s")
 
+    # serving, default ModelConfig: the unwindowed DCNv3 forward kernel
     t0 = time.time()
     model = build_posenet(ModelConfig(), backbone_variant="base", seed=0)
     perturb_dcn(model, seed=1)
@@ -966,23 +1406,51 @@ def main(argv: list[str]) -> None:
     log(f"phase build model: ConvNeXt-B PoseNet, {n_params / 1e6:.1f} M "
         f"params, bf16 compute, in {time.time() - t0:.1f} s")
     t0 = time.time()
-    outs, launches = serve(model, batches)
-    log(f"phase serve: {REQUESTS} requests of batch {BATCH}, "
-        f"dcnv3_fwd launches {launches}, outputs finite, "
-        f"|R^T R - I| <= {ORTHO_BAR}, in {time.time() - t0:.1f} s")
+    outs, serve_counts = serve(model, batches, {"dcnv3_fwd": 3})
+    log(f"phase serve: {REQUESTS} requests of batch {BATCH}, launches "
+        f"{serve_counts}, outputs finite, |R^T R - I| <= {ORTHO_BAR}, in "
+        f"{time.time() - t0:.1f} s")
     t0 = time.time()
     compare_paths(model, batches[0], outs[0])
     log(f"phase compare: kernel vs plain DCNv3 path in f32 and bf16, "
         f"in {time.time() - t0:.1f} s")
-
     t0 = time.time()
-    tot = time_layers(gen, card)
+    tot = time_layers(gen, card, reps=20)
     fwd_ms = time_posenet(model, batches[0], card)
     profile_forward(model, batches[0], fwd_ms, card)
     log(f"phase serve timing: in {time.time() - t0:.1f} s")
+    del model, outs
+    torch.cuda.empty_cache()
+
+    # serving, the fast configuration: windowed DCNv3 + int8 ConvNeXt MLP
+    t0 = time.time()
+    cfg_fast = ModelConfig(dcn_window=WINDOW, quant_dense=True)
+    model = build_posenet(cfg_fast, backbone_variant="base", seed=0)
+    perturb_dcn(model, seed=1, offset_std=WINDOW_OFFSET_STD)
+    set_layer_scales(model, seed=2)
+    outs, fast_counts = serve(model, batches,
+                              {"dcnv3_win_fwd": 3, "int8_mlp": 30})
+    shares = model_clamp_share(model, batches[0], WINDOW, train=False)
+    log(f"phase serve fast: dcn_window={WINDOW}, quant_dense=True, "
+        f"{REQUESTS} requests of batch {BATCH}, launches {fast_counts}, "
+        f"outputs finite, |R^T R - I| <= {ORTHO_BAR}; clamp holds "
+        f"{', '.join(f'{100 * v:.2f} %' for v in shares)} of the DCNv3 "
+        f"layers' samples, in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    compare_paths(model, batches[0], outs[0], cfg_fast)
+    departure(model, cfg_fast, batches[0], outs[0])
+    log(f"phase compare fast: kernel vs plain path (windowed DCNv3 and "
+        f"int8 MLP) in f32 and bf16, in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    tot_win = time_layers(gen, card, window=WINDOW, reps=30)
+    tot_mlp = time_mlp(gen, card)
+    fast_ms = time_posenet(model, batches[0], card)
+    profile_forward(model, batches[0], fast_ms, card)
+    log(f"phase serve fast timing: in {time.time() - t0:.1f} s")
     del model, outs, batches
     torch.cuda.empty_cache()
 
+    # training, default Config
     t0 = time.time()
     cfg = Config()
     state = init_train_state(cfg, backbone_variant="base", seed=0)
@@ -990,23 +1458,57 @@ def main(argv: list[str]) -> None:
     initial = snapshot(state.model)
     step = make_train_step(state.model, cfg)
     batch = train_batch(TRAIN_BATCH, seed=5)
-    losses, train_fwd, train_bwd = train(state, step, batch)
+    losses, train_counts = train(state, step, batch,
+                                 {"dcnv3_fwd": 3, "dcnv3_bwd": 3})
     log(f"phase train: {TRAIN_STEPS} steps of batch {TRAIN_BATCH}, losses "
-        f"{[round(v, 5) for v in losses]}, dcnv3_fwd launches {train_fwd}, "
-        f"dcnv3_bwd launches {train_bwd}, in {time.time() - t0:.1f} s")
+        f"{[round(v, 5) for v in losses]}, launches {train_counts}, in "
+        f"{time.time() - t0:.1f} s")
     t0 = time.time()
     nan_step(state, step, batch)
     compare_train_paths(initial, batch)
     del initial
     log(f"phase train checks: NaN step skipped; kernel vs plain DCNv3 "
         f"path in one step, f32 and bf16, in {time.time() - t0:.1f} s")
-
     t0 = time.time()
-    tot_bwd = time_bwd_layers(gen, card)
+    tot_bwd = time_bwd_layers(gen, card, reps=20)
     step_ms = time_train(state, step, batch, card)
     profile_train_step(state, step, batch, step_ms, card)
     breakdown_train_step(state, batch, card)
     log(f"phase train timing: in {time.time() - t0:.1f} s")
+    del state, step
+    torch.cuda.empty_cache()
+
+    # training under the window
+    t0 = time.time()
+    cfg_w = Config(model=ModelConfig(dcn_window=WINDOW))
+    state = init_train_state(cfg_w, backbone_variant="base", seed=0)
+    perturb_dcn(state.model, seed=1, offset_std=WINDOW_OFFSET_STD)
+    initial = snapshot(state.model)
+    step = make_train_step(state.model, cfg_w)
+    losses_w, win_train_counts = train(state, step, batch,
+                                       {"dcnv3_win_fwd": 3, "dcnv3_bwd": 3})
+    shares_t = model_clamp_share(state.model, batch, WINDOW, train=False)
+    log(f"phase train window: dcn_window={WINDOW}, {TRAIN_STEPS} steps of "
+        f"batch {TRAIN_BATCH}, losses {[round(v, 5) for v in losses_w]}, "
+        f"launches {win_train_counts}; after them the clamp holds "
+        f"{', '.join(f'{100 * v:.2f} %' for v in shares_t)} of the DCNv3 "
+        f"layers' samples, in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    nan_step(state, step, batch)
+    compare_train_paths(initial, batch, cfg_w.model)
+    del initial
+    log(f"phase train window checks: NaN step skipped; kernel vs plain "
+        f"windowed DCNv3 path in one step, f32 and bf16, in "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    tot_bwd_win = time_bwd_layers(gen, card, window=WINDOW, reps=20)
+    step_ms_w = time_train(state, step, batch, card)
+    log(f"phase train window timing: {step_ms_w:.3f} ms per step, in "
+        f"{time.time() - t0:.1f} s")
+    log(f"all phases ok in {time.time() - start:.1f} s")
+
+    def bound_by(t):
+        return "bytes" if t["bound_ms"] > t["ops_ms"] else "operations"
 
     log(card)
     log(json.dumps({"kernels": [{
@@ -1014,15 +1516,16 @@ def main(argv: list[str]) -> None:
         "route": "cuda",
         "source": "givepose_torch/csrc/dcnv3_fwd.cu",
         "replaces": "givepose_tpu/ops/dcnv3_pallas.py:146",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "max_err": max_err,
+        "launches": serve_counts["dcnv3_fwd"],
+        "launches_by_path": {"serve": serve_counts["dcnv3_fwd"],
+                             "train": train_counts["dcnv3_fwd"]},
+        "max_abs_err": max(max_err, tot["err"]),
+        "max_err": max(max_err, tot["err"]),
         # per PoseNet forward at batch 32: the three layers summed
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
-        "bound_by": "bytes" if tot["bound_ms"] > tot["ops_ms"]
-        else "operations",
+        "bound_by": bound_by(tot),
         # no single PyTorch call computes DCNv3
         "library_ms": None,
     }, {
@@ -1030,17 +1533,57 @@ def main(argv: list[str]) -> None:
         "route": "cuda",
         "source": "givepose_torch/csrc/dcnv3_bwd.cu",
         "replaces": "givepose_tpu/ops/dcnv3_pallas_bwd.py:32",
-        "launches": train_bwd,
-        "max_abs_err": max(max_bwd_err, tot_bwd["err"]),
-        "max_err": max(max_bwd_err, tot_bwd["err"]),
-        # per train step at batch 48: the three layers summed
+        "launches": train_counts["dcnv3_bwd"]
+        + win_train_counts["dcnv3_bwd"],
+        "launches_by_path": {"train": train_counts["dcnv3_bwd"],
+                             "train_window": win_train_counts["dcnv3_bwd"]},
+        "max_abs_err": max(max_bwd_err, tot_bwd["err"], win_bwd_err,
+                           tot_bwd_win["err"]),
+        "max_err": max(max_bwd_err, tot_bwd["err"], win_bwd_err,
+                       tot_bwd_win["err"]),
+        # per train step at batch 48: the three layers summed, unbounded
+        # offsets; the windowed backward beside it
         "ms": tot_bwd["ms"],
         "plain_ms": tot_bwd["plain_ms"],
         "bound_ms": tot_bwd["bound_ms"],
-        "bound_by": "bytes" if tot_bwd["bound_ms"] > tot_bwd["ops_ms"]
-        else "operations",
+        "bound_by": bound_by(tot_bwd),
+        "window_ms": tot_bwd_win["ms"],
+        "window_plain_ms": tot_bwd_win["plain_ms"],
         # no single PyTorch call computes the DCNv3 backward
         "library_ms": None,
+    }, {
+        "name": "dcnv3_win_fwd",
+        "route": "cuda",
+        "source": "givepose_torch/csrc/dcnv3_win_fwd.cu",
+        "replaces": "givepose_tpu/ops/dcnv3_window_pallas.py:156",
+        "launches": fast_counts["dcnv3_win_fwd"],
+        "launches_by_path": {
+            "serve_fast": fast_counts["dcnv3_win_fwd"],
+            "train_window": win_train_counts["dcnv3_win_fwd"]},
+        "max_abs_err": max(win_err, tot_win["err"]),
+        # per PoseNet forward at batch 32: the three layers summed
+        "ms": tot_win["ms"],
+        "plain_ms": tot_win["plain_ms"],
+        "bound_ms": tot_win["bound_ms"],
+        "bound_by": bound_by(tot_win),
+        # no single PyTorch call computes DCNv3
+        "library_ms": None,
+    }, {
+        "name": "int8_mlp",
+        "route": "cuda",
+        "source": "givepose_torch/csrc/int8_mlp.cu",
+        "replaces": "givepose_tpu/ops/quant_matmul_pallas.py:251",
+        "launches": fast_counts["int8_mlp"],
+        "max_abs_err": mlp_err,
+        # per PoseNet forward at batch 32: 27 stage-2 and 3 stage-3 blocks
+        "ms": tot_mlp["ms"],
+        "plain_ms": tot_mlp["plain_ms"],
+        "bound_ms": tot_mlp["bound_ms"],
+        "bound_by": bound_by(tot_mlp),
+        # no single PyTorch call computes the int8 MLP; the bf16 block MLPs
+        # it replaces, as a yardstick
+        "library_ms": None,
+        "bf16_mlp_ms": tot_mlp["bf16_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

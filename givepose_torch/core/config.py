@@ -75,7 +75,7 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"       # bfloat16 | float32 (matmul/conv dtype)
     param_dtype: str = "float32"
     gelu_exact: bool = False              # erf GELU instead of the tanh form
-    quant_dense: bool = False             # int8 serving mode (not ported yet)
+    quant_dense: bool = False             # int8 backbone MLPs, serving only
 
     def torch_dtype(self) -> torch.dtype:
         """The compute dtype as a torch dtype."""

@@ -1,13 +1,16 @@
-// DCNv3 backward (unbounded offsets) for Hopper, sm_90a.
+// DCNv3 backward (unbounded or windowed offsets) for Hopper, sm_90a.
 //
 // Replaces the TPU kernel
 // givepose_tpu/ops/dcnv3_pallas_bwd.py:_dcnv3_bwd_kernel, the backward of
-// dcnv3_fast.  That kernel is the transpose of the forward's two-hot
-// matmuls (Mosaic has no gather or scatter) and leaves the chain rule
-// through the sampling prep to XLA.  Here the whole gradient is computed
+// dcnv3_fast and, on window-clamped locations, of dcnv3_windowed
+// (givepose_tpu/ops/dcnv3_window_pallas.py:326).  That kernel is the
+// transpose of the forward's two-hot matmuls (Mosaic has no gather or
+// scatter) and leaves the chain rule through the sampling prep, the
+// window clamp included, to XLA.  Here the whole gradient is computed
 // pointwise: the transpose of the forward's gather is a scatter.
 //
-// Contract (autograd of givepose_torch/ops/dcnv3.py:dcnv3_core, window 0):
+// Contract (autograd of givepose_torch/ops/dcnv3.py:dcnv3_core, any
+// window):
 //   x        (N, H, W, G*gc)     bf16 or f32, the forward's input
 //   offset   (N, Ho, Wo, G*P*2)  f32, last dim ordered (g, p, xy)
 //   mask     (N, Ho, Wo, G*P)    f32
@@ -17,7 +20,11 @@
 //   d_mask   (N, Ho, Wo, G*P)    f32, written
 // floor() has zero gradient, so d(location) is d(fractional part); a
 // corner outside the image (pad band or beyond) has neither value nor
-// gradient; d_offset = d_location * offset_scale.
+// gradient; d_offset = d_location * clip' * offset_scale, where clip' is
+// the window clamp's gradient (1 without a window; with one, 1 strictly
+// inside, 0.5 on the bound, 0 where the clamp holds the sample: the
+// jnp.clip semantics of the JAX package).  The samples themselves are
+// taken at the clamped location, as in the windowed forward.
 //
 // Design: one warp per (n, output pixel, group), each lane owning VEC
 // adjacent channels, as the forward.  Per tap the warp recomputes the
@@ -157,10 +164,13 @@ dcnv3_bwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
       if (lane == 0) {
         d_mask[msk_base + tap] =
             w00 * dot00 + w10 * dot10 + w01 * dot01 + w11 * dot11;
-        const float d_fx =
+        float d_fx =
             m * ((1.0f - fy) * (dot10 - dot00) + fy * (dot11 - dot01));
-        const float d_fy =
+        float d_fy =
             m * ((1.0f - fx) * (dot01 - dot00) + fx * (dot11 - dot10));
+        // a held sample passes no gradient, not even a NaN one
+        d_fx = k.gx == 0.0f ? 0.0f : d_fx * k.gx;
+        d_fy = k.gy == 0.0f ? 0.0f : d_fy * k.gy;
         *reinterpret_cast<float2*>(d_offset + off_base + 2 * tap) =
             make_float2(d_fx * p.offset_scale, d_fy * p.offset_scale);
       }
@@ -187,16 +197,18 @@ void launch(const void* x, const void* offset, const void* mask,
 
 // Plain-C entry point, loaded with ctypes.  x_bf16 selects the input type
 // (1: bf16, 0: f32); vec is 2 when every lane may move two channels at
-// once (gc even, x and grad_out aligned), else 1.  d_x must hold zeros.
+// once (gc even, x and grad_out aligned), else 1; window 0 means
+// unbounded offsets.  d_x must hold zeros.
 // Returns cudaGetLastError().
 extern "C" int dcnv3_bwd(const void* x, int x_bf16, const void* offset,
                          const void* mask, const void* grad_out, void* d_x,
                          void* d_offset, void* d_mask, int n, int h, int w,
                          int ho, int wo, int group, int gc, int kernel,
                          int stride, int pad, int dilation,
-                         float offset_scale, int vec, void* stream) {
+                         float offset_scale, int window, int vec,
+                         void* stream) {
   Params p{n, h, w, ho, wo, group, gc, kernel, stride, pad, dilation,
-           offset_scale};
+           offset_scale, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n * ho * wo * group > 0) {
     if (x_bf16) {

@@ -148,7 +148,7 @@ extern "C" int dcnv3_fwd(const void* x, int x_bf16, const void* offset,
                          int stride, int pad, int dilation,
                          float offset_scale, int vec, void* stream) {
   Params p{n, h, w, ho, wo, group, gc, kernel, stride, pad, dilation,
-           offset_scale};
+           offset_scale, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n * ho * wo * group > 0) {
     if (x_bf16) {

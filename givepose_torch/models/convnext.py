@@ -6,6 +6,12 @@ blocks, LN + 2x2/2 downsample between stages.  Stem and downsample convs
 are VALID.  Submodule names follow the flax tree (``stem_conv``,
 ``downsample_norm{s}``, ``stage{s}_block{b}``) so the weight bridge
 (``models/convert_from_flax.py``) maps them one to one.
+
+``quant=True`` is the int8 serving mode: blocks of width >= ``quant_min_dim``
+(512: stages 2 and 3 of ConvNeXt-B) run their MLP tail through the fused
+int8 kernel (``ops/quant_matmul.py``).  The parameters are the same, so a
+trained checkpoint serves as it is.  It is inference-only, as in the JAX
+package (rounding has zero gradient): ``PoseNet`` refuses to train it.
 """
 
 from __future__ import annotations
@@ -18,17 +24,19 @@ import torch.nn.functional as F
 
 from givepose_torch.models.layers import Conv2d, LayerNorm, Linear
 from givepose_torch.ops.dwconv_ln import dwconv_ln
+from givepose_torch.ops.quant_matmul import convnext_mlp_int8
 
 
 class ConvNeXtBlock(nn.Module):
+    """``impl`` (quant blocks only): auto (int8 kernel on CUDA tensors,
+    plain version on CPU), cuda, or torch."""
+
     def __init__(self, dim: int, layer_scale_init: float = 1e-6,
                  gelu_exact: bool = False, quant: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if quant:
-            raise NotImplementedError(
-                "int8 serving mode (quant_dense=True) needs the int8 MLP "
-                "kernel, not ported yet (ROADMAP queue B, items B4-B6)")
+        self.quant = quant
+        self.impl = "auto"
         cd = compute_dtype
         # parameter holders for dwconv_ln: (C,1,7,7) kernel + bias, LN affine
         self.dwconv = Conv2d(dim, dim, 7, padding=3, groups=dim,
@@ -45,11 +53,33 @@ class ConvNeXtBlock(nn.Module):
         self.gamma.fill_(self.layer_scale_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant:
+            return self._forward_quant(x)
         y = dwconv_ln(x, self.dwconv.weight, self.dwconv.bias,
                       self.norm.weight, self.norm.bias, self.norm.eps)
         y = F.gelu(self.fc1(y), approximate=self.gelu)
         y = self.fc2(y)
         return x + y * self.gamma.to(self.compute_dtype)
+
+    def _forward_quant(self, x: torch.Tensor) -> torch.Tensor:
+        """As the JAX quant branch: the depthwise conv of the compute-dtype
+        operands summed in f32 (here on their f32 upcast; TF32 must be off)
+        plus the f32 bias, its LN statistics in f32, and the raw map in
+        the compute dtype into the int8 MLP, whose prologue normalises it;
+        residual and layer scale are applied in f32 inside."""
+        c = x.shape[-1]
+        w = self.dwconv.weight.to(x.dtype).float()
+        yc = F.conv2d(x.float().permute(0, 3, 1, 2), w, None, 1, 3, 1,
+                      c).permute(0, 2, 3, 1) + self.dwconv.bias
+        mu = yc.mean(-1, keepdim=True)
+        d = yc - mu
+        rsig = torch.rsqrt((d * d).mean(-1, keepdim=True) + self.norm.eps)
+        act = "gelu_tanh" if self.gelu == "tanh" else "gelu_exact"
+        return convnext_mlp_int8(
+            yc.to(self.compute_dtype), x, self.fc1.weight.t(), self.fc1.bias,
+            self.fc2.weight.t(), self.fc2.bias, self.gamma, act=act,
+            out_dtype=self.compute_dtype,
+            ln=(mu, rsig, self.norm.weight, self.norm.bias), impl=self.impl)
 
 
 class ConvNeXt(nn.Module):
@@ -58,7 +88,7 @@ class ConvNeXt(nn.Module):
     def __init__(self, depths: Sequence[int] = (3, 3, 27, 3),
                  dims: Sequence[int] = (128, 256, 512, 1024),
                  in_chans: int = 3, gelu_exact: bool = False,
-                 quant: bool = False,
+                 quant: bool = False, quant_min_dim: int = 512,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         cd = compute_dtype
@@ -77,9 +107,13 @@ class ConvNeXt(nn.Module):
                                 Conv2d(dims[stage - 1], dim, 2, stride=2,
                                        compute_dtype=cd))
             for blk in range(depth):
+                # int8 pays only where K is deep (the JAX package's v5e
+                # sweep); narrow early stages stay in the compute dtype
                 self.add_module(f"stage{stage}_block{blk}",
                                 ConvNeXtBlock(dim, gelu_exact=gelu_exact,
-                                              quant=quant, compute_dtype=cd))
+                                              quant=quant
+                                              and dim >= quant_min_dim,
+                                              compute_dtype=cd))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.stem_norm(self.stem_conv(x.to(self.compute_dtype)))

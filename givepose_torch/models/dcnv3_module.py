@@ -25,8 +25,8 @@ class DCNv3(nn.Module):
     """Deformable block, NHWC in at (H, W), out at (H_out, W_out).
 
     ``impl``: auto (CUDA kernel on CUDA tensors, plain version on CPU),
-    cuda, or torch.  ``window`` > 0 clamps sampling to +-window px; it runs
-    only on the plain version until the windowed kernel is ported.
+    cuda, or torch.  ``window`` > 0 clamps sampling to +-window px (the
+    windowed kernel on CUDA tensors).
     """
 
     def __init__(self, channels: int, kernel_size: int = 3, stride: int = 1,

@@ -16,6 +16,8 @@ Port of ``givepose_tpu/models/posenet.py``:
 statistics (updating its running ones) and applies dropout with a mask
 drawn from the caller's ``generator``.  DropBlock and drop-path
 (``drop_prob > 0``) are not ported and raise when the model is built.
+``quant_dense=True`` (int8 backbone MLPs) serves only: a training forward
+raises, as the JAX package asserts.
 """
 
 from __future__ import annotations
@@ -94,6 +96,10 @@ class PoseNet(nn.Module):
         if train and generator is None:
             raise ValueError("train=True needs a torch.Generator on the "
                              "model's device for SizeHead's dropout")
+        if train and self.cfg.quant_dense:
+            raise ValueError("quant_dense=True is an int8 serving mode: "
+                             "rounding has zero gradient, so it does not "
+                             "train")
         cd = self.compute_dtype
         cfg = self.cfg
         feat = self.backbone(batch["roi_img"].to(cd))        # (B,8,8,C)

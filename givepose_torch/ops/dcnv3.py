@@ -53,16 +53,25 @@ def dcnv3_sampling_locations(offset: torch.Tensor, h_in: int, w_in: int,
     return loc - 0.5
 
 
+def _clip(v: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """``jnp.clip``: the values of ``torch.clamp`` and the gradient of
+    ``min(max(v, lo), hi)``, which is 1 strictly inside, 0.5 on either
+    bound (a tie of max or min splits it) and 0 outside.  ``torch.clamp``
+    gives 1 on the bound."""
+    return torch.minimum(torch.maximum(v, lo), hi)
+
+
 def clamp_to_window(loc: torch.Tensor, h_out: int, w_out: int, kernel: int,
                     stride: int, dilation: int, window: int) -> torch.Tensor:
-    """Clamp (N, Ho, Wo, G, P, 2) locations to ``centre +- window`` px."""
+    """Clamp (N, Ho, Wo, G, P, 2) locations to ``centre +- window`` px,
+    with ``jnp.clip``'s gradient (``_clip``)."""
     half = (dilation * (kernel - 1)) // 2
     cy = torch.from_numpy(half + stride * np.arange(h_out, dtype=np.float32))
     cx = torch.from_numpy(half + stride * np.arange(w_out, dtype=np.float32))
     cx = cx.to(loc.device)[None, None, :, None, None]
     cy = cy.to(loc.device)[None, :, None, None, None]
-    return torch.stack([torch.clamp(loc[..., 0], cx - window, cx + window),
-                        torch.clamp(loc[..., 1], cy - window, cy + window)],
+    return torch.stack([_clip(loc[..., 0], cx - window, cx + window),
+                        _clip(loc[..., 1], cy - window, cy + window)],
                        dim=-1)
 
 

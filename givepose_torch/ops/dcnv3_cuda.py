@@ -1,13 +1,15 @@
 """DCNv3 on the GPU: wrappers of the hand-written CUDA kernels and the
 autograd Function that joins them.
 
-Kernels: ``givepose_torch/csrc/dcnv3_fwd.cu`` and ``csrc/dcnv3_bwd.cu``
-(sharing ``csrc/dcnv3_common.cuh``), built by ``ops/_build.py`` with nvcc
-for sm_90a and called through ctypes.  They replace the TPU kernels
-``givepose_tpu/ops/dcnv3_pallas.py:_dcnv3_kernel`` (forward, reached
-there through ``dcnv3_fast``) and
-``givepose_tpu/ops/dcnv3_pallas_bwd.py:_dcnv3_bwd_kernel`` (its
-backward).
+Kernels: ``givepose_torch/csrc/dcnv3_fwd.cu``, ``csrc/dcnv3_win_fwd.cu``
+and ``csrc/dcnv3_bwd.cu`` (sharing ``csrc/dcnv3_common.cuh``), built by
+``ops/_build.py`` with nvcc for sm_90a and called through ctypes.  They
+replace the TPU kernels ``givepose_tpu/ops/dcnv3_pallas.py:_dcnv3_kernel``
+(forward, reached there through ``dcnv3_fast``),
+``givepose_tpu/ops/dcnv3_window_pallas.py:_win_kernel`` (the forward with
+samples clamped to a window, ``dcnv3_windowed``) and
+``givepose_tpu/ops/dcnv3_pallas_bwd.py:_dcnv3_bwd_kernel`` (the backward
+of both, with the clamp's gradient for the windowed one).
 
 Forward bound: memory.  About 10 flop per (pixel, group, tap, channel)
 against the bytes of x, offset, mask and out; at batch 32 the first
@@ -16,6 +18,10 @@ in bf16 (halving the dominant read; the model's ``x_proj`` already is
 bf16) and loads each bilinear corner of a group as one coalesced 128-byte
 read, one warp per (n, output pixel, group).  Output is f32, as the TPU
 kernel's; the module casts it to its compute dtype.
+
+Windowed forward bound: memory, as the forward.  A block stages the slab
+of x that its tile of output rows can reach in shared memory and gathers
+from there (the window bounds the slab; see the source's note).
 
 Backward bound: memory.  About 16 flop per (pixel, group, tap, channel)
 (4 corner dots, 4 scatter products and atomic adds) against x, grad_out,
@@ -27,8 +33,9 @@ atomics, so its last bits vary from run to run.  Later work can cut the
 atomics (a shared-memory tile of d_x) and the repeated corner reads.
 
 ``dcnv3`` dispatches: CPU tensors go to the plain ``dcnv3_core`` (autograd
-differentiates it), CUDA tensors to ``DCNv3Function`` (forward and
-backward kernels).  There is no fallback from one to the other.
+differentiates it), CUDA tensors to ``DCNv3Function`` (forward or windowed
+forward kernel, and the backward kernel).  There is no fallback from one
+to the other.
 """
 
 from __future__ import annotations
@@ -40,14 +47,16 @@ import torch
 from givepose_torch.ops.dcnv3 import dcnv3_core
 
 FWD_SOURCE = "dcnv3_fwd.cu"
+WIN_FWD_SOURCE = "dcnv3_win_fwd.cu"
 BWD_SOURCE = "dcnv3_bwd.cu"
 _fns: dict[str, object] = {}
 
 
-def _kernel(source: str, name: str, n_pointers: int):
+def _kernel(source: str, name: str, n_pointers: int, n_tail: int = 1):
     """The C entry point ``name`` of ``csrc/<source>``: ``n_pointers``
     pointers with an int after the first (x's dtype), 11 int shapes,
-    offset_scale, vec and the stream."""
+    offset_scale, ``n_tail`` ints (window where there is one, then vec)
+    and the stream."""
     if name not in _fns:
         from givepose_torch.ops._build import load_library
 
@@ -55,7 +64,8 @@ def _kernel(source: str, name: str, n_pointers: int):
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
                        + [ctypes.c_void_p] * (n_pointers - 1)
                        + [ctypes.c_int] * 11
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * n_tail
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -132,14 +142,52 @@ def dcnv3_cuda(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
 dcnv3_cuda.launches = 0
 
 
+def dcnv3_win_cuda(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                   kernel: int = 3, stride: int = 1, pad: int = 1,
+                   dilation: int = 1, group: int = 4,
+                   offset_scale: float = 1.0, window: int = 3
+                   ) -> torch.Tensor:
+    """Launch the windowed DCNv3 forward kernel.  Contract of
+    ``dcnv3_core(..., window=window)`` with window > 0, inputs as
+    ``dcnv3_cuda``; returns (N,Ho,Wo,G*gc) f32."""
+    if int(window) != window or window <= 0:
+        raise ValueError(f"window must be a positive int, got {window}")
+    if kernel * kernel > 32:
+        raise ValueError(f"the windowed kernel takes kernel <= 5, got "
+                         f"{kernel}")
+    n, h, w, h_out, w_out, gc = _check_inputs(x, offset, mask, kernel, group,
+                                              "dcnv3_win_cuda")
+    c_total = x.shape[-1]
+    out = torch.empty((n, h_out, w_out, c_total), device=x.device,
+                      dtype=torch.float32)
+    vec = 2 if gc % 2 == 0 else 1
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _kernel(WIN_FWD_SOURCE, "dcnv3_win_fwd", 4, 2)(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), offset.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), n, h, w, h_out, w_out, group,
+            gc, kernel, stride, pad, dilation, float(offset_scale),
+            int(window), vec, stream)
+    if err != 0:
+        raise RuntimeError(f"dcnv3_win_fwd launch failed: cudaError {err}")
+    dcnv3_win_cuda.launches += 1
+    return out
+
+
+dcnv3_win_cuda.launches = 0
+
+
 def dcnv3_bwd_cuda(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                    grad_out: torch.Tensor, kernel: int = 3, stride: int = 1,
                    pad: int = 1, dilation: int = 1, group: int = 4,
-                   offset_scale: float = 1.0
+                   offset_scale: float = 1.0, window: int = 0
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the DCNv3 backward kernel: the forward's inputs (contract of
     ``dcnv3_cuda``) and grad_out (N,Ho,Wo,G*gc) f32, contiguous; returns
-    (d_x, d_offset, d_mask), all f32, as ``ops.dcnv3.dcnv3_core_bwd``."""
+    (d_x, d_offset, d_mask), all f32, as ``ops.dcnv3.dcnv3_core_bwd``
+    with the same ``window`` (0: unbounded offsets)."""
+    if int(window) != window or window < 0:
+        raise ValueError(f"window must be an int >= 0, got {window}")
     n, h, w, h_out, w_out, gc = _check_inputs(x, offset, mask, kernel, group,
                                               "dcnv3_bwd_cuda")
     if grad_out.dtype != torch.float32:
@@ -159,12 +207,12 @@ def dcnv3_bwd_cuda(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     vec = _vec(gc, x, grad_out)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel(BWD_SOURCE, "dcnv3_bwd", 7)(
+        err = _kernel(BWD_SOURCE, "dcnv3_bwd", 7, 2)(
             x.data_ptr(), int(x.dtype == torch.bfloat16), offset.data_ptr(),
             mask.data_ptr(), grad_out.data_ptr(), d_x.data_ptr(),
             d_offset.data_ptr(), d_mask.data_ptr(), n, h, w, h_out, w_out,
             group, gc, kernel, stride, pad, dilation, float(offset_scale),
-            vec, stream)
+            int(window), vec, stream)
     if err != 0:
         raise RuntimeError(f"dcnv3_bwd launch failed: cudaError {err}")
     dcnv3_bwd_cuda.launches += 1
@@ -175,18 +223,23 @@ dcnv3_bwd_cuda.launches = 0
 
 
 class DCNv3Function(torch.autograd.Function):
-    """DCNv3 on CUDA tensors: forward kernel, backward kernel.  Returns f32
-    (N,Ho,Wo,G*gc); d_x comes back in x's dtype, as the transpose of the
-    JAX module's cast of ``x_proj`` to f32."""
+    """DCNv3 on CUDA tensors: the forward kernel (window 0) or the
+    windowed forward kernel, and the backward kernel with the same window.
+    Returns f32 (N,Ho,Wo,G*gc); d_x comes back in x's dtype, as the
+    transpose of the JAX module's cast of ``x_proj`` to f32."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, kernel, stride, pad, dilation, group,
-                offset_scale):
+                offset_scale, window):
         ctx.save_for_backward(x, offset, mask)
         ctx.kw = dict(kernel=kernel, stride=stride, pad=pad,
                       dilation=dilation, group=group,
-                      offset_scale=offset_scale)
-        return dcnv3_cuda(x, offset, mask, **ctx.kw)
+                      offset_scale=offset_scale, window=window)
+        if window > 0:
+            return dcnv3_win_cuda(x, offset, mask, **ctx.kw)
+        kw = dict(ctx.kw)
+        del kw["window"]
+        return dcnv3_cuda(x, offset, mask, **kw)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -194,7 +247,7 @@ class DCNv3Function(torch.autograd.Function):
         d_x, d_offset, d_mask = dcnv3_bwd_cuda(
             x, offset, mask, grad_out.float().contiguous(), **ctx.kw)
         return (d_x.to(x.dtype), d_offset, d_mask,
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def dcnv3(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -203,17 +256,14 @@ def dcnv3(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
           impl: str = "auto") -> torch.Tensor:
     """DCNv3, f32 out, differentiable.  ``impl``: auto (kernels for CUDA
     tensors, plain version for CPU tensors), cuda (kernels only), torch
-    (plain)."""
+    (plain).  ``window`` > 0 clamps every sample to +-window px of its
+    query (the windowed kernel on CUDA tensors)."""
     if impl not in ("auto", "cuda", "torch"):
         raise ValueError(f"unknown dcn impl {impl!r}")
     kw = dict(kernel=kernel, stride=stride, pad=pad, dilation=dilation,
               group=group, offset_scale=offset_scale)
     if impl == "torch" or (impl == "auto" and not x.is_cuda):
         return dcnv3_core(x.float(), offset, mask, window=window, **kw)
-    if window > 0:
-        raise NotImplementedError(
-            "windowed DCNv3 (dcn_window > 0) has no CUDA kernel yet "
-            "(ROADMAP queue B, item B3); use dcn_impl='torch'")
     return DCNv3Function.apply(x.contiguous(), offset.contiguous(),
                                mask.contiguous(), kernel, stride, pad,
-                               dilation, group, offset_scale)
+                               dilation, group, offset_scale, window)

@@ -102,6 +102,31 @@ def test_core_grads_match_jax(stride, dilation, window):
                                    err_msg=name)
 
 
+def test_clamp_tie_grads_match_jax():
+    """Window 1, zero offsets: every corner tap of the 3x3 grid lies on
+    the window's bound, where ``jnp.clip``'s gradient is 0.5 (that of
+    ``torch.clamp`` is 1, which doubled d_offset there)."""
+    x, _, m = make_inputs(80, n=1, h=8, w=8, group=1, gc=8)
+    off = np.zeros((1, 8, 8, 18), np.float32)
+    kw = dict(kernel=3, stride=1, pad=1, dilation=1, group=1,
+              offset_scale=1.0, window=1)
+    cot = np.random.default_rng(81).normal(size=x.shape).astype(np.float32)
+
+    def jloss(a, b, c):
+        return jnp.sum(jax_dcnv3_core(a, b, c, **kw) * cot)
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(off),
+                                            jnp.asarray(m))
+    tx, toff, tm = (torch.from_numpy(a).requires_grad_() for a in (x, off, m))
+    (dcnv3_core(tx, toff, tm, **kw) * torch.from_numpy(cot)).sum().backward()
+    # the corner taps' d_offset is half the unclamped one, not zero
+    assert np.abs(np.asarray(jg[1])).max() > 1e-2
+    for name, t, j in (("x", tx, jg[0]), ("offset", toff, jg[1]),
+                       ("mask", tm, jg[2])):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), atol=1e-5,
+                                   err_msg=name)
+
+
 def test_dispatch_on_cpu_takes_plain_path():
     x, off, m = make_inputs(3, stride=2)
     tx, toff, tm = (torch.from_numpy(a) for a in (x, off, m))
@@ -116,7 +141,7 @@ def test_dispatch_on_cpu_takes_plain_path():
 
 @pytest.mark.parametrize("impl,window,exc", [
     ("cuda", 0, RuntimeError),            # CPU tensor never reaches a kernel
-    ("cuda", 3, NotImplementedError),     # windowed kernel not ported
+    ("cuda", 3, RuntimeError),            # nor the windowed one
     ("bogus", 0, ValueError),
 ])
 def test_dispatch_raises(impl, window, exc):

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from givepose_torch.ops.dcnv3 import dcnv3_core, dcnv3_core_bwd
-from givepose_torch.ops.dcnv3_cuda import dcnv3, dcnv3_bwd_cuda, dcnv3_cuda
+from givepose_torch.ops.dcnv3_cuda import (dcnv3, dcnv3_bwd_cuda, dcnv3_cuda,
+                                           dcnv3_win_cuda)
 
 
 @pytest.fixture
@@ -62,17 +63,21 @@ def test_kernel_matches_plain(cuda, dtype, gc, stride, dilation, mult, h):
 @pytest.mark.cuda
 def test_dispatch_on_card(cuda):
     """auto launches the kernel for CUDA tensors, torch never does, and a
-    windowed call raises instead of falling back."""
+    windowed call launches the windowed kernel (no fallback)."""
     x, off, m = make_inputs(0, 1, 8, 8, 4, 8, 2, 1, 2.0, cuda)
-    dcnv3_cuda.launches = 0
+    dcnv3_cuda.launches = dcnv3_win_cuda.launches = 0
     a = dcnv3(x, off, m, stride=2)
     b = dcnv3(x, off, m, stride=2, impl="torch")
     assert dcnv3_cuda.launches == 1
     torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max())
-    with pytest.raises(NotImplementedError):
-        dcnv3(x, off, m, stride=2, window=3)
+    a = dcnv3(x, off, m, stride=2, window=3)
+    b = dcnv3(x, off, m, stride=2, window=3, impl="torch")
+    assert dcnv3_win_cuda.launches == 1 and dcnv3_cuda.launches == 1
+    torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max())
     with pytest.raises(ValueError):
         dcnv3_cuda(x, off[..., :-2].contiguous(), m, stride=2)
+    with pytest.raises(ValueError):
+        dcnv3_win_cuda(x, off, m, stride=2, window=0)
 
 
 @pytest.mark.cuda
@@ -159,3 +164,121 @@ def test_train_step_runs_the_kernels(cuda):
     assert metrics["notfinite_total"] == 0
     assert any(not torch.equal(a, p) for a, p in
                zip(before, state.model.parameters()))
+
+
+def on_bound(off, window, kernel=3):
+    """Offsets that put every tap exactly on the window's bound (x high,
+    y low; offset_scale 1)."""
+    half = (kernel - 1) // 2
+    lin = torch.arange(kernel, device=off.device, dtype=off.dtype) - half
+    gx, gy = lin.repeat_interleave(kernel), lin.repeat(kernel)
+    o = off.reshape(*off.shape[:3], -1, kernel * kernel, 2).clone()
+    o[..., 0] = window - gx
+    o[..., 1] = -window - gy
+    return o.reshape(off.shape)
+
+
+# (gc, stride, dilation, offset multiplier, h, window, on bound); large
+# multipliers put most samples on the clamp
+WIN_CASES = [
+    (64, 2, 1, 2.0, 16, 4, False), (64, 2, 1, 8.0, 16, 4, False),
+    (64, 2, 1, 0.0, 16, 4, True), (16, 1, 2, 2.0, 9, 3, False),
+    (4, 2, 1, 8.0, 7, 1, False), (96, 2, 1, 2.0, 8, 4, False),
+    (5, 1, 1, 2.0, 6, 2, False), (64, 1, 1, 3.0, 11, 3, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("gc,stride,dilation,mult,h,window,bound", WIN_CASES)
+def test_win_kernel_matches_plain(cuda, dtype, gc, stride, dilation, mult, h,
+                                  window, bound):
+    x, off, m = make_inputs(gc + 7, 2, h, h + 1, 4, gc, stride, dilation,
+                            mult, cuda)
+    if bound:
+        off = on_bound(off, window)
+    kw = dict(stride=stride, dilation=dilation, group=4, window=window)
+    x = x.to(dtype)
+    out = dcnv3_win_cuda(x, off, m, **kw)
+    ref = dcnv3_core(x.float(), off, m, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_win_kernel_wide_rows_tile_columns(cuda):
+    """f32 x, 64 channels per group and a 96-wide input: one full output
+    row's slab exceeds the tile budget, so the kernel tiles columns."""
+    x, off, m = make_inputs(3, 2, 20, 96, 4, 64, 2, 1, 4.0, cuda)
+    kw = dict(stride=2, group=4, window=4)
+    out = dcnv3_win_cuda(x, off, m, **kw)
+    ref = dcnv3_core(x, off, m, **kw)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("gc,stride,dilation,mult,h,window,bound", WIN_CASES)
+def test_win_bwd_kernel_matches_plain(cuda, dtype, gc, stride, dilation,
+                                      mult, h, window, bound):
+    """The backward kernel with a window: samples at clamped locations,
+    d_offset scaled by the clamp's gradient (0 where it holds a sample,
+    0.5 on its bound)."""
+    x, off, m = make_inputs(gc + 9, 2, h, h + 1, 4, gc, stride, dilation,
+                            mult, cuda)
+    if bound:
+        off = on_bound(off, window)
+    kw = dict(stride=stride, dilation=dilation, group=4, window=window)
+    x = x.to(dtype)
+    g = torch.randn(dcnv3_core(x.float(), off, m, **kw).shape,
+                    generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    got = dcnv3_bwd_cuda(x, off, m, g, **kw)
+    want = dcnv3_core_bwd(x, off, m, g, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("d_x", "d_offset", "d_mask"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item(), \
+            name
+
+
+@pytest.mark.cuda
+def test_win_bwd_clamp_tie(cuda):
+    """Window 1, zero offsets, stride 1: every corner tap lies on the
+    window's bound, where d_offset is half the unclamped gradient."""
+    x, _, m = make_inputs(5, 1, 8, 8, 1, 8, 1, 1, 0.0, cuda)
+    off = torch.zeros(1, 8, 8, 18, device=cuda)
+    kw = dict(stride=1, group=1, window=1)
+    g = torch.randn(1, 8, 8, 8, generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    got = dcnv3_bwd_cuda(x, off, m, g, **kw)
+    want = dcnv3_core_bwd(x, off, m, g, **kw)
+    unclamped = dcnv3_core_bwd(x, off, m, g, stride=1, group=1)[1]
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+    corner = torch.tensor([0, 2, 6, 8], device=cuda)
+    held = want[1].reshape(1, 8, 8, 9, 2)[..., corner, :]
+    free = unclamped.reshape(1, 8, 8, 9, 2)[..., corner, :]
+    assert free.abs().max().item() > 1e-2
+    torch.testing.assert_close(held, 0.5 * free)
+
+
+@pytest.mark.cuda
+def test_windowed_output_is_differentiable(cuda):
+    """A windowed CUDA DCNv3 runs the windowed forward and the backward
+    kernel with the window."""
+    x, off, m = make_inputs(4, 2, 16, 16, 4, 64, 2, 1, 6.0, cuda)
+    xb = x.to(torch.bfloat16).requires_grad_()
+    offr, mr = off.clone().requires_grad_(), m.clone().requires_grad_()
+    dcnv3_win_cuda.launches = dcnv3_bwd_cuda.launches = 0
+    y = dcnv3(xb, offr, mr, stride=2, window=4)
+    g = torch.randn_like(y)
+    y.backward(g)
+    assert dcnv3_win_cuda.launches == 1 and dcnv3_bwd_cuda.launches == 1
+    want = dcnv3_core_bwd(xb.detach(), off, m, g, stride=2, window=4)
+    for got, ref in ((xb.grad.float(), want[0].to(torch.bfloat16).float()),
+                     (offr.grad, want[1]), (mr.grad, want[2])):
+        assert (got - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
