@@ -20,6 +20,11 @@ Phases, each of which exits non-zero when it fails:
      offsets, where d_offset is half the unclamped one);
    - the fused int8 ConvNeXt MLP at the stage-2 and stage-3 shapes of
      batch 32, with and without its LayerNorm prologue;
+   - the W8A8 dense matmuls (``int8_qmm``, x quantized in the kernel, and
+     ``int8_qmm_pre``, x quantized before) at the four ConvNeXt-B MLP
+     matmul shapes of batch 32 and at ragged shapes, x and out in bf16 and
+     in f32, for each activation; and ``QuantDense`` loaded from a bf16
+     ``nn.Linear``'s state dict;
 4. serve batch-32 requests through full-width ConvNeXt-B PoseNet (bf16,
    seeded random weights, DCNv3 offset and mask projections perturbed so
    that samples land off the grid), first under the default ModelConfig,
@@ -28,7 +33,14 @@ Phases, each of which exits non-zero when it fails:
    kernel's launches per request; serve one request again on the plain
    versions and compare, in bf16 and in an f32 copy of the model; print
    the int8 model's departure from the same weights served in bf16;
-5. train, first under the default Config (Ranger, lr 1e-3, clip 5, batch
+   after each configuration, export it as a serving artifact
+   (``export_posenet``, weights as call arguments), save and load it, and
+   serve the same 3 requests through it: the eager outputs, the eager
+   launches per request, an artifact under 5 MB;
+5. run the W8A8 dense path (``QuantDense`` layers, and
+   ``quantize_activations`` into ``quant_matmul_pre``) over the stage-2
+   and stage-3 MLPs of 3 batch-32 requests, counting both kernels;
+6. train, first under the default Config (Ranger, lr 1e-3, clip 5, batch
    48), then with ``dcn_window=4``: 5 steps on a seeded batch (256²
    crops, 64² maps and masks, 1024 model points, random rotations, half
    of them symmetric); the loss stays finite, parameters and BatchNorm
@@ -39,10 +51,12 @@ Phases, each of which exits non-zero when it fails:
    losses and gradients with the kernels against the plain DCNv3
    version, in an f32 copy at batch 8 (and the backward kernel on that
    step's own tensors against the plain backward) and in bf16;
-6. time each kernel per layer or block at the path's shapes (kernel,
-   plain version, bound; for the int8 MLP also the bf16 block MLP it
-   replaces), the PoseNet forward of both configurations and the train
-   step of both with CUDA events, break the forwards' and the default
+7. time each kernel per layer, block or matmul at the path's shapes
+   (kernel, plain version, bound; for the int8 MLP also the bf16 block MLP
+   it replaces; for the dense matmuls the bf16 ``F.linear`` and
+   ``torch._int_mm`` on the same operands), the PoseNet forward of both
+   configurations, eager and from its artifact, and the train step of both
+   with CUDA events, break the forwards' and the default
    train step's device time down by op with torch.profiler, and the
    default train step's wall and device time down by part (forward,
    gradients, optimizer).
@@ -111,6 +125,28 @@ INT8_OPS_PER_S = 1979e12   # H100 SXM dense int8 tensor-core peak
 # blocks, rows M, width C); H = 4 C
 MLP_STAGES = [("stage2", 27, BATCH * 16 * 16, 512),
               ("stage3", 3, BATCH * 8 * 8, 1024)]
+
+# W8A8 dense matmuls (B4, B5) at the ConvNeXt-B MLP shapes of batch 32:
+# (name, M, K, N, the layer's activation)
+QMM_SHAPES = [("stage2_fc1", BATCH * 16 * 16, 512, 2048, "gelu_tanh"),
+              ("stage2_fc2", BATCH * 16 * 16, 2048, 512, "none"),
+              ("stage3_fc1", BATCH * 8 * 8, 1024, 4096, "gelu_tanh"),
+              ("stage3_fc2", BATCH * 8 * 8, 4096, 1024, "none")]
+# ragged (M, K, N): K with 16-byte rows, a multiple of 8 only, of 4 only,
+# odd; the JAX package's test shape
+QMM_RAGGED = [("ragged", 77, 96, 48, "gelu_tanh"),
+              ("k520", 200, 520, 130, "gelu_tanh"),
+              ("k100", 33, 100, 250, "gelu_tanh"),
+              ("odd", 5, 37, 19, "gelu_tanh"),
+              ("tpu_test", 48, 192, 160, "gelu_tanh")]
+QMM_ACTS = ("none", "gelu_tanh", "gelu_exact")
+# dense kernel vs plain version: max err within QMM_FLIPS one-step flips of
+# a quantized x value (B4 only; times GELU's largest slope 1.13) plus 2 ulp
+# of the output dtype at max|ref|, mean within MLP_MEAN_BAR * mean|ref|
+QMM_FLIPS = 3
+# serving artifact: the graph only, the weights as call arguments
+ARTIFACT_MAX_BYTES = 5 * 2 ** 20
+WEIGHTS_MIN_BYTES = 350e6        # f32 bytes of ConvNeXt-B PoseNet's weights
 
 # DCNv3 layers of the MAPEncoder: (name, input side), k3 s2 p1, 4 x 64 ch
 MAIN_LAYERS = [("layer0", 64), ("layer1", 32), ("layer2", 16)]
@@ -268,10 +304,12 @@ def kernel_wrappers() -> dict:
     """The wrapper of each kernel by name; each counts its launches."""
     from givepose_torch.ops.dcnv3_cuda import (dcnv3_bwd_cuda, dcnv3_cuda,
                                                dcnv3_win_cuda)
-    from givepose_torch.ops.quant_matmul import mlp_int8_cuda
+    from givepose_torch.ops.quant_matmul import (mlp_int8_cuda, qmm_cuda,
+                                                 qmm_pre_cuda)
 
     return {"dcnv3_fwd": dcnv3_cuda, "dcnv3_win_fwd": dcnv3_win_cuda,
-            "dcnv3_bwd": dcnv3_bwd_cuda, "int8_mlp": mlp_int8_cuda}
+            "dcnv3_bwd": dcnv3_bwd_cuda, "int8_mlp": mlp_int8_cuda,
+            "int8_qmm": qmm_cuda, "int8_qmm_pre": qmm_pre_cuda}
 
 
 def reset_counts() -> None:
@@ -365,10 +403,10 @@ def max_diff(a, b) -> float:
     return (a - b).abs().max().item()
 
 
-def compare_paths(model, batch, out, cfg=None) -> None:
+def compare_paths(model, batch, out, cfg=None) -> dict:
     """The kernel path against the plain path (DCNv3 and, with
     ``quant_dense``, the int8 MLP), on the card, for the model of ``cfg``
-    (default ``ModelConfig()``).
+    (default ``ModelConfig()``); returns the f32 copy's outputs.
 
     In f32 (the same weights in a float32 model, TF32 off) the two differ
     by summation order only and are held to the repo's PoseNet parity bars
@@ -405,6 +443,7 @@ def compare_paths(model, batch, out, cfg=None) -> None:
             f"{e16.max().item():.3e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"PoseNet {k} differs between the kernel and plain paths")
+    return out32
 
 
 def train_batch(b: int, seed: int) -> dict:
@@ -465,7 +504,7 @@ def moved(before: dict, model, running: bool) -> bool:
 
 
 def train(state, step, batch, per_step: dict) -> tuple[list, dict]:
-    """Phase 5: a training main path, TRAIN_STEPS steps at batch 48.
+    """Phase 6: a training main path, TRAIN_STEPS steps at batch 48.
     Returns the total losses and each kernel's launches, which must be
     ``per_step`` times the steps."""
     import torch
@@ -753,7 +792,7 @@ def time_ms(fn, reps: int, flush=None) -> float:
 
 
 def time_layers(gen, card: str, window: int = 0, reps: int = 50) -> dict:
-    """Phase 6a: each MAPEncoder DCNv3 layer at batch 32, bf16 x, offsets
+    """Phase 7a: each MAPEncoder DCNv3 layer at batch 32, bf16 x, offsets
     N(0, 2 px); with a window, the windowed kernel."""
     import torch
 
@@ -808,7 +847,7 @@ def time_layers(gen, card: str, window: int = 0, reps: int = 50) -> dict:
 
 def time_bwd_layers(gen, card: str, window: int = 0,
                     reps: int = 30) -> dict:
-    """Phase 6b: the backward of each MAPEncoder DCNv3 layer at the
+    """Phase 7b: the backward of each MAPEncoder DCNv3 layer at the
     training batch 48, bf16 x, with ``window`` (0: unbounded).  Bytes: x,
     grad_out, offset, mask read once, d_x (f32), d_offset, d_mask written
     once; zeroing d_x before the kernel and casting it to bf16 after are
@@ -870,7 +909,7 @@ def device_busy_ms(prof) -> float:
 
 
 def time_train(state, step, batch, card: str) -> float:
-    """Phase 6e: the train step at batch 48 over TIMED_STEPS steps after
+    """Phase 7e: the train step at batch 48 over TIMED_STEPS steps after
     two warm-up steps: CUDA events around each step, and the host clock
     around all of them; peak device memory.  Returns ms per step."""
     import torch
@@ -903,7 +942,7 @@ def time_train(state, step, batch, card: str) -> float:
 
 def profile_train_step(state, step, batch, step_ms: float,
                        card: str) -> None:
-    """Phase 6f: device time of one train step by op, from torch.profiler
+    """Phase 7f: device time of one train step by op, from torch.profiler
     over 2 steps, and the share of the unprofiled step time in which the
     device is busy."""
     import torch
@@ -925,7 +964,7 @@ def profile_train_step(state, step, batch, step_ms: float,
 
 
 def breakdown_train_step(state, batch, card: str) -> None:
-    """Phase 6g: where one train step's time goes.  The step's three parts
+    """Phase 7g: where one train step's time goes.  The step's three parts
     (forward with the loss; the gradients; the optimizer update) run
     apart, synchronised at their edges: the host clock gives each part's
     wall time (mean of 3), and a torch.profiler around each part its
@@ -976,7 +1015,7 @@ def breakdown_train_step(state, batch, card: str) -> None:
 
 
 def time_posenet(model, batch, card: str) -> float:
-    """Phase 6c: PoseNet forward at batch 32; returns ms per forward."""
+    """Phase 7c: PoseNet forward at batch 32; returns ms per forward."""
     import torch
 
     def fwd():
@@ -993,9 +1032,10 @@ def time_posenet(model, batch, card: str) -> float:
 
 
 def profile_forward(model, batch, fwd_ms: float, card: str) -> None:
-    """Phase 6d: device time of the PoseNet forward by op, from
-    torch.profiler over 3 forwards, and the share of the unprofiled
-    forward time (``fwd_ms``) in which the device is busy."""
+    """Phase 7: device time of the PoseNet forward (``model``: the model or
+    an artifact's forward on the batch) by op, from torch.profiler over 3
+    forwards, and the share of the unprofiled forward time (``fwd_ms``) in
+    which the device is busy."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -1296,7 +1336,7 @@ def departure(model, cfg, batch, out) -> None:
 
 
 def time_mlp(gen, card: str, reps: int = 20) -> dict:
-    """Phase 6: the int8 MLP kernel (LN variant, bf16) per block of each
+    """Phase 7: the int8 MLP kernel (LN variant, bf16) per block of each
     int8 stage at batch 32, against its bound (operations: 16 M C^2 int8
     ops at 1979 TOP/s; bytes: y, residual, out in bf16, both int8 weight
     matrices, LN statistics), its plain version, and the bf16 block MLP
@@ -1349,6 +1389,452 @@ def time_mlp(gen, card: str, reps: int = 20) -> dict:
     return total
 
 
+def qmm_operands(gen, m: int, k: int, n: int, dtype) -> dict:
+    """A dense layer's operands on the card: x ~ N(0, 4) in ``dtype``, its
+    per-row int8 form (``quantize_activations``), weights N(0, 1/K)
+    quantized per output channel (int8 (K, N), transposed (N, K), f32
+    scales) and a bias N(0, 0.01)."""
+    import torch
+
+    from givepose_torch.ops.quant_matmul import (quantize_activations,
+                                                 quantize_weights)
+
+    x = (torch.randn(m, k, generator=gen, device=gen.device) * 2.0).to(dtype)
+    wq, ws = quantize_weights(torch.randn(k, n, generator=gen,
+                                          device=gen.device) * k ** -0.5)
+    xq, xs = quantize_activations(x)
+    return dict(x=x, xq=xq, xs=xs.reshape(-1), wq=wq,
+                wt=wq.t().contiguous(), ws=ws,
+                b=torch.randn(n, generator=gen, device=gen.device) * 0.1)
+
+
+def qmm_bars(ref, flip: float = 0.0) -> tuple[float, float]:
+    """(max bar, mean bar) of a dense kernel against its plain version:
+    QMM_FLIPS one-step flips of a quantized x value (``qmm_flip``; 0 for
+    B5, whose x is quantized before the call) times GELU's largest slope,
+    plus 2 ulp of the output dtype at max|ref|; MLP_MEAN_BAR *
+    mean|ref|."""
+    import torch
+
+    ulp = 2.0 ** -7 if ref.dtype == torch.bfloat16 else 2.0 ** -23
+    top = ref.float().abs()
+    return (QMM_FLIPS * 1.13 * flip + 2 * ulp * top.max().item(),
+            MLP_MEAN_BAR * top.mean().item())
+
+
+def check_qmm_kernels(gen) -> tuple[float, float]:
+    """Phase 3, the W8A8 dense kernels against their plain versions at the
+    batch-32 ConvNeXt-B MLP shapes and the ragged ones, x and out in bf16
+    and f32, for every activation; returns the largest max abs error of
+    B4 and of B5."""
+    import torch
+
+    from givepose_torch.ops.quant_matmul import (qmm_cuda, qmm_flip,
+                                                 qmm_pre_cuda,
+                                                 quant_matmul_plain,
+                                                 quant_matmul_pre_plain)
+
+    worst = [0.0, 0.0]
+    for name, m, k, n, _ in QMM_SHAPES + QMM_RAGGED:
+        for dtype in (torch.bfloat16, torch.float32):
+            op = qmm_operands(gen, m, k, n, dtype)
+            flip = qmm_flip(op["x"], op["wq"], op["ws"])
+            parts = []
+            for act in QMM_ACTS:
+                runs = (
+                    (qmm_cuda(op["x"], op["wt"], op["ws"], op["b"], act,
+                              dtype),
+                     quant_matmul_plain(op["x"], op["wq"], op["ws"], op["b"],
+                                        act, dtype), flip),
+                    (qmm_pre_cuda(op["xq"], op["xs"], op["wt"], op["ws"],
+                                  op["b"], act, dtype),
+                     quant_matmul_pre_plain(op["xq"], op["xs"], op["wq"],
+                                            op["ws"], op["b"], act, dtype),
+                     0.0))
+                torch.cuda.synchronize()
+                for i, (out, ref, fl) in enumerate(runs):
+                    d = (out.float() - ref.float()).abs()
+                    max_bar, mean_bar = qmm_bars(ref, fl)
+                    err = d.max().item()
+                    ok = (out.shape == (m, n) and out.dtype == dtype
+                          and err <= max_bar and d.mean().item() <= mean_bar)
+                    worst[i] = max(worst[i], err)
+                    parts.append(f"{('B4', 'B5')[i]} {act} {err:.2e} "
+                                 f"({int((d > 0).sum())} differ, bar "
+                                 f"{max_bar:.1e})")
+                    if not ok:
+                        fail(f"{('int8_qmm', 'int8_qmm_pre')[i]} disagrees "
+                             f"with its plain version on {name} {dtype} "
+                             f"{act}: max {err:.3e} (bar {max_bar:.3e}), "
+                             f"mean {d.mean().item():.3e} (bar "
+                             f"{mean_bar:.3e})")
+            log(f"  int8_qmm / int8_qmm_pre {name} ({m}, {k} -> {n}) "
+                f"{str(dtype).split('.')[1]:<8} of {m * n} outputs: "
+                + "; ".join(parts) + " ok")
+    return worst[0], worst[1]
+
+
+def check_quant_dense(gen) -> None:
+    """Phase 3, ``QuantDense`` from ``make_dense(True, ...)`` loaded (strict)
+    from a bf16 ``nn.Linear``'s state dict, on a (32, 16, 16, 512) bf16
+    input: one int8_qmm launch per call, its plain path's output up to
+    flips, and its departure from the bf16 Linear (+ GELU) it replaces."""
+    import torch
+    import torch.nn.functional as F
+
+    from givepose_torch.models.quant import make_dense
+    from givepose_torch.ops.quant_matmul import (qmm_cuda, qmm_flip,
+                                                 quant_dense,
+                                                 quantize_weights)
+
+    _, m, k, n, act = QMM_SHAPES[0]
+    lin = torch.nn.Linear(k, n, dtype=torch.bfloat16, device=gen.device)
+    with torch.no_grad():
+        lin.weight.normal_(0, k ** -0.5, generator=gen)
+        lin.bias.normal_(0, 0.1, generator=gen)
+    layer = make_dense(True, k, n, torch.bfloat16, act=act).to(gen.device)
+    layer.load_state_dict(lin.state_dict(), strict=True)
+    x = torch.randn(BATCH, 16, 16, k, generator=gen, device=gen.device).to(
+        torch.bfloat16)
+    wq, ws = quantize_weights(layer.weight.t())
+    before = qmm_cuda.launches
+    with torch.inference_mode():
+        out = layer(x)
+        launched = qmm_cuda.launches - before
+        ref = quant_dense(x, layer.weight.t(), layer.bias, act=act,
+                          impl="torch")
+        want = F.gelu(lin(x), approximate="tanh")
+    torch.cuda.synchronize()
+    d = (out.float() - ref.float()).abs()
+    max_bar, mean_bar = qmm_bars(ref, qmm_flip(x.reshape(-1, k), wq, ws))
+    rel = ((out.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    ok = (launched == 1 and out.shape == (BATCH, 16, 16, n)
+          and d.max().item() <= max_bar and d.mean().item() <= mean_bar
+          and rel < 5e-2)
+    log(f"  QuantDense({k}, {n}, act={act}) from a bf16 nn.Linear's state "
+        f"dict, x{tuple(x.shape)} bf16: {launched} int8_qmm launch, vs its "
+        f"plain path max {d.max().item():.3e} ({int((d > 0).sum())} of "
+        f"{d.numel()} differ), vs the bf16 Linear + GELU max/max|ref| "
+        f"{rel:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("QuantDense disagrees with its plain path or the Linear it "
+             "replaces")
+
+
+def dense_path(gen) -> tuple[dict, float]:
+    """Phase 5, the W8A8 dense path: for each of 3 batch-32 requests, the
+    stage-2 and stage-3 ConvNeXt-B MLPs as ``QuantDense`` layers (fc1 with
+    its GELU in the epilogue, fc2), and as ``quantize_activations`` into
+    ``quant_matmul_pre`` with the same layers' weights.  Returns each
+    kernel's launches (4 of each per request) and the largest departure
+    of the int8 MLP from the bf16 one (relative to max|bf16|)."""
+    import torch
+    import torch.nn.functional as F
+
+    from givepose_torch.models.quant import make_dense
+    from givepose_torch.ops.quant_matmul import (quant_matmul_pre,
+                                                 quantize_activations,
+                                                 quantize_weights)
+
+    bf16 = torch.bfloat16
+    stages = []
+    for (_, m, c, h, _), side in ((QMM_SHAPES[0], 16), (QMM_SHAPES[2], 8)):
+        fc1 = make_dense(True, c, h, bf16, act="gelu_tanh").to(gen.device)
+        fc2 = make_dense(True, h, c, bf16).to(gen.device)
+        with torch.no_grad():
+            for lin in (fc1, fc2):
+                lin.weight.normal_(0, lin.in_features ** -0.5, generator=gen)
+                lin.bias.normal_(0, 0.02, generator=gen)
+        pre = [quantize_weights(lin.weight.t()) + (lin.bias,)
+               for lin in (fc1, fc2)]
+        xs = [torch.randn(BATCH, side, side, c, generator=gen,
+                          device=gen.device).to(bf16)
+              for _ in range(REQUESTS)]
+        stages.append((fc1, fc2, pre, xs))
+    reset_counts()
+    outs = []
+    with torch.inference_mode():
+        for r in range(REQUESTS):
+            for fc1, fc2, pre, xs in stages:
+                x = xs[r]
+                y = fc2(fc1(x))
+                (w1q, w1s, b1), (w2q, w2s, b2) = pre
+                hq, hs = quantize_activations(x)
+                hid = quant_matmul_pre(hq, hs, w1q, w1s, b1, "gelu_tanh")
+                gq, gs = quantize_activations(hid)
+                z = quant_matmul_pre(gq, gs, w2q, w2s, b2)
+                outs.append((x, y, z, fc1, fc2))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts(counts, {"int8_qmm": 4 * REQUESTS,
+                          "int8_qmm_pre": 4 * REQUESTS},
+                 f"{REQUESTS} dense-path requests")
+    worst = 0.0
+    with torch.inference_mode():
+        for x, y, z, fc1, fc2 in outs:
+            want = F.linear(F.gelu(F.linear(x, fc1.weight.to(bf16),
+                                            fc1.bias.to(bf16)),
+                                   approximate="tanh"),
+                            fc2.weight.to(bf16), fc2.bias.to(bf16))
+            for got in (y, z):
+                if got.shape != want.shape or not torch.isfinite(got).all():
+                    fail("the dense path's output is malformed")
+                rel = ((got.float() - want.float()).abs().max()
+                       / want.float().abs().max()).item()
+                worst = max(worst, rel)
+    if worst > 5e-2:
+        fail(f"the int8 dense MLP departs from the bf16 one by {worst:.3e}")
+    return counts, worst
+
+
+def time_qmm(gen, card: str, reps: int = 20) -> dict:
+    """Phase 7: B4 and B5 per matmul at the batch-32 ConvNeXt-B shapes, x
+    and out in bf16, each layer's activation: the kernel, its plain
+    version, its bound (2 M N K int8 ops at 1979 TOP/s; bytes: x (bf16 for
+    B4, int8 and the row scales for B5), the int8 weights, scales and bias,
+    the bf16 output, at 3.35 TB/s), and as yardsticks the bf16
+    ``F.linear`` (+ GELU) and ``torch._int_mm`` on the same operands.
+    Returns the four matmuls summed, per kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from givepose_torch.ops.quant_matmul import (qmm_cuda, qmm_pre_cuda,
+                                                 quant_matmul_plain,
+                                                 quant_matmul_pre_plain)
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=gen.device)
+    keys = ("ms", "plain_ms", "bound_ms", "ops_ms", "bf16_linear_ms",
+            "int_mm_ms")
+    tot = {k: {key: 0.0 for key in keys} for k in ("int8_qmm",
+                                                    "int8_qmm_pre")}
+    bf16 = torch.bfloat16
+    for name, m, k, n, act in QMM_SHAPES:
+        op = qmm_operands(gen, m, k, n, bf16)
+        w16 = (op["wq"].float() * op["ws"]).t().contiguous().to(bf16)
+        b16 = op["b"].to(bf16)
+
+        def linear():
+            y = F.linear(op["x"], w16, b16)
+            return F.gelu(y, approximate="tanh") if act != "none" else y
+
+        lin_ms = time_ms(linear, reps, flush)
+        int_mm_ms = time_ms(lambda: torch._int_mm(op["xq"], op["wt"].t()),
+                            reps, flush)
+        ops = 2 * m * n * k
+        ops_ms = ops / INT8_OPS_PER_S * 1e3
+        runs = {
+            "int8_qmm": (
+                lambda: qmm_cuda(op["x"], op["wt"], op["ws"], op["b"], act),
+                lambda: quant_matmul_plain(op["x"], op["wq"], op["ws"],
+                                           op["b"], act),
+                2 * m * k),
+            "int8_qmm_pre": (
+                lambda: qmm_pre_cuda(op["xq"], op["xs"], op["wt"], op["ws"],
+                                     op["b"], act),
+                lambda: quant_matmul_pre_plain(op["xq"], op["xs"], op["wq"],
+                                               op["ws"], op["b"], act),
+                m * k + 4 * m)}
+        for kname, (kernel, plain, x_bytes) in runs.items():
+            ms = time_ms(kernel, reps, flush)
+            plain_ms = time_ms(plain, 3, flush)
+            n_bytes = x_bytes + n * k + 8 * n + 2 * m * n
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(ops_ms, bytes_ms)
+            log(f"  {kname} {name} ({m}, {k} -> {n}) bf16, {act}: kernel "
+                f"{ms:.4f} ms ({ops / ms / 1e9:.0f} TOP/s), plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (ops "
+                f"{ops_ms:.4f} ms at 1979 TOP/s; {n_bytes / 1e6:.1f} MB, "
+                f"{bytes_ms:.4f} ms at 3.35 TB/s), bf16 F.linear"
+                f"{' + GELU' if act != 'none' else ''} {lin_ms:.4f} ms, "
+                f"torch._int_mm {int_mm_ms:.4f} ms [{card}]")
+            t = tot[kname]
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("bound_ms", bound_ms), ("ops_ms", ops_ms),
+                           ("bf16_linear_ms", lin_ms),
+                           ("int_mm_ms", int_mm_ms)):
+                t[key] += v
+    for kname, t in tot.items():
+        log(f"  {kname} over the four batch-32 matmuls: kernel "
+            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bf16 F.linear {t['bf16_linear_ms']:.4f}"
+            f" ms, torch._int_mm {t['int_mm_ms']:.4f} ms [{card}]")
+    return tot
+
+
+def time_dispatch(gen, card: str, calls: int = 30, rounds: int = 7) -> dict:
+    """Phase 7: the host time that a call through a kernel's
+    ``torch.ops.givepose`` operator adds to a direct call of its wrapper,
+    on the same tensors at the main path's batch-32 shapes (the first
+    DCNv3 layer, a stage-2 int8 block, the stage-2 fc1 matmul).  The host
+    clock runs around ``calls`` calls with no synchronisation inside, so
+    it reads the time to issue them while the card runs behind; operator
+    and wrapper in turns (operator, wrapper, wrapper, operator), median
+    over ``rounds``.  Logs the cost per serving request (default: 3
+    dcnv3_fwd; fast: 3 dcnv3_win_fwd + 30 int8_mlp) and returns, per
+    kernel, the operator's and the wrapper's µs per call."""
+    import statistics
+
+    import torch
+
+    from givepose_torch.ops.dcnv3_cuda import (dcnv3_bwd_cuda, dcnv3_cuda,
+                                               dcnv3_win_cuda)
+    from givepose_torch.ops.quant_matmul import (mlp_int8_cuda, qmm_cuda,
+                                                 qmm_pre_cuda)
+
+    ops, bf16 = torch.ops.givepose, torch.bfloat16
+    x, off, m = dcnv3_inputs(gen, BATCH, 64, 64, 4, 64, 2, 1, 1, 2.0)
+    x = x.to(bf16)
+    go = torch.randn(*off.shape[:3], x.shape[-1], generator=gen,
+                     device=gen.device)
+    kw = dict(kernel=3, stride=2, pad=1, dilation=1, group=4,
+              offset_scale=1.0)
+    geo = tuple(kw.values())
+    _, _, mm, c = MLP_STAGES[0]
+    (y, res, w0t, s0, b0, w1t, s1, b1, act, ln), _ = mlp_operands(
+        mlp_inputs(gen, mm, c, bf16), True)
+    ln = (ln[0].contiguous(), ln[1].contiguous(), ln[2], ln[3])
+    _, qm, qk, qn, qact = QMM_SHAPES[0]
+    q = qmm_operands(gen, qm, qk, qn, bf16)
+    qargs = (q["wt"], q["ws"], q["b"], qact, bf16)
+    pairs = {
+        "dcnv3_fwd": (lambda: ops.dcnv3_fwd(x, off, m, *geo),
+                      lambda: dcnv3_cuda(x, off, m, **kw)),
+        "dcnv3_win_fwd": (
+            lambda: ops.dcnv3_win_fwd(x, off, m, *geo, WINDOW),
+            lambda: dcnv3_win_cuda(x, off, m, window=WINDOW, **kw)),
+        "dcnv3_bwd": (lambda: ops.dcnv3_bwd(x, off, m, go, *geo, 0),
+                      lambda: dcnv3_bwd_cuda(x, off, m, go, **kw)),
+        "int8_mlp": (
+            lambda: ops.int8_mlp(y, res, w0t, s0, b0, w1t, s1, b1, act, bf16,
+                                 *ln),
+            lambda: mlp_int8_cuda(y, res, w0t, s0, b0, w1t, s1, b1, act, ln)),
+        "int8_qmm": (lambda: ops.int8_qmm(q["x"], *qargs),
+                     lambda: qmm_cuda(q["x"], *qargs)),
+        "int8_qmm_pre": (lambda: ops.int8_qmm_pre(q["xq"], q["xs"], *qargs),
+                         lambda: qmm_pre_cuda(q["xq"], q["xs"], *qargs)),
+    }
+
+    def host_us(fn) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return (time.perf_counter() - t) / calls * 1e6
+
+    res_us = {}
+    for name, (op, wrapper) in pairs.items():
+        for _ in range(3):
+            op()
+            wrapper()
+        t_op, t_w = [], []
+        for _ in range(rounds):
+            t_op.append(host_us(op))
+            t_w += [host_us(wrapper), host_us(wrapper)]
+            t_op.append(host_us(op))
+        o, w = statistics.median(t_op), statistics.median(t_w)
+        res_us[name] = (o, w)
+        log(f"  {name} issued from the host: operator {o:.2f} µs, wrapper "
+            f"{w:.2f} µs per call, the operator adds {o - w:.2f} µs "
+            f"(median of {2 * rounds} runs of {calls} calls each) [{card}]")
+    torch.cuda.synchronize()
+
+    def add(name):
+        return res_us[name][0] - res_us[name][1]
+
+    log(f"  operators' host cost per batch-{BATCH} request: default "
+        f"{3 * add('dcnv3_fwd') / 1e3:.4f} ms (3 dcnv3_fwd), fast "
+        f"{(3 * add('dcnv3_win_fwd') + 30 * add('int8_mlp')) / 1e3:.4f} ms "
+        f"(3 dcnv3_win_fwd + 30 int8_mlp); per train step "
+        f"{3 * (add('dcnv3_fwd') + add('dcnv3_bwd')) / 1e3:.4f} ms [{card}]")
+    return res_us
+
+
+def serve_artifact(model, cfg, batches, outs, out32, per_request: dict,
+                   card: str) -> dict:
+    """Phase 4, after each configuration: export ``model`` (of ``cfg``) at
+    batch 32 on the card, save the artifact to a file and load it, and
+    serve ``batches`` through it with the model's weights.  Each request
+    must launch what the eager forward does (``per_request``), the outputs
+    must equal the eager ones (``outs``) or, failing that, depart from
+    them on average by no more than bf16 departs from the f32 copy
+    (``out32``, request 0), and the artifact must stay under
+    ARTIFACT_MAX_BYTES against at least WEIGHTS_MIN_BYTES of f32 weights.
+    Returns the launches."""
+    import io
+    import tempfile
+
+    import torch
+
+    from givepose_torch.eval.serving import (export_posenet,
+                                             load_exported_file,
+                                             save_exported)
+
+    weights = model.state_dict()
+    t0 = time.time()
+    blob = export_posenet(weights, cfg, "base", batch_size=BATCH,
+                          img_size=256, device="cuda")
+    export_s = time.time() - t0
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "posenet.pt2")
+        save_exported(path, blob)
+        fn = load_exported_file(path)
+    weight_bytes = sum(v.numel() * 4 for v in weights.values())
+    if len(blob) >= ARTIFACT_MAX_BYTES or weight_bytes < WEIGHTS_MIN_BYTES:
+        fail(f"artifact {len(blob)} bytes against {weight_bytes} bytes of "
+             f"f32 weights")
+    reset_counts()
+    arts = [fn(weights, b) for b in batches]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for art in arts:
+        check_outputs(art, BATCH)
+    check_counts(counts, {k: v * len(batches) for k, v in
+                          per_request.items()},
+                 f"{len(batches)} requests through the artifact")
+    bitwise = all(torch.equal(a[k], o[k]) for a, o in zip(arts, outs)
+                  for k in o)
+    for k in PARITY_BARS:
+        d = max((a[k] - o[k]).abs().mean().item() for a, o in zip(arts, outs))
+        own = (outs[0][k] - out32[k]).abs().mean().item()
+        if not bitwise and d > own:
+            fail(f"the artifact's {k} departs from the eager forward by "
+                 f"{d:.3e} on average, more than bf16 from f32 ({own:.3e})")
+
+    def eager():
+        with torch.inference_mode():
+            model(batches[0])
+
+    # in turns: eager, artifact, artifact, eager
+    times = [time_ms(f, 10) for f in (eager, lambda: fn(weights, batches[0]),
+                                      lambda: fn(weights, batches[0]),
+                                      eager)]
+    eager_ms, art_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+    profile_forward(lambda b: fn(weights, b), batches[0], art_ms, card)
+    # where the artifact's host time goes: its graph's size, and the same
+    # graph without torch.export's per-call checks of the ~470 inputs
+    exported = torch.export.load(io.BytesIO(blob))
+    n_ops = sum(n.op == "call_function" for n in exported.graph.nodes)
+    raw = exported.module()
+    raw.validate_inputs = False
+    args = ({k: weights[k] for k in sorted(weights)},
+            {k: batches[0][k] for k in sorted(batches[0])})
+
+    def unchecked():
+        with torch.inference_mode():
+            raw(*args)
+
+    unchecked_ms = time_ms(unchecked, 10)
+    log(f"  artifact: {len(blob) / 1e6:.3f} MB against {weight_bytes / 1e6:.1f}"
+        f" MB of f32 weights; export {export_s:.1f} s; launches {counts}; "
+        f"outputs {'bitwise equal to' if bitwise else 'within bf16 of'} the "
+        f"eager forward; forward batch {BATCH}: artifact {art_ms:.3f} ms "
+        f"({BATCH * 1e3 / art_ms:.1f} crops/s), eager {eager_ms:.3f} ms "
+        f"({BATCH * 1e3 / eager_ms:.1f} crops/s); the graph's {n_ops} ops "
+        f"without the input checks {unchecked_ms:.3f} ms [{card}]")
+    return counts
+
+
 def main(argv: list[str]) -> None:
     if argv:
         fail(f"chip_smoke.py takes no arguments, got {argv}")
@@ -1394,6 +1880,8 @@ def main(argv: list[str]) -> None:
     win_err = check_win_kernel(gen)
     win_bwd_err = check_win_bwd_kernel(gen)
     mlp_err = check_mlp_kernel(gen)
+    qmm_err, qmm_pre_err = check_qmm_kernels(gen)
+    check_quant_dense(gen)
     log(f"phase kernel check: ok in {time.time() - t0:.1f} s")
 
     # serving, default ModelConfig: the unwindowed DCNv3 forward kernel
@@ -1411,7 +1899,7 @@ def main(argv: list[str]) -> None:
         f"{serve_counts}, outputs finite, |R^T R - I| <= {ORTHO_BAR}, in "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
-    compare_paths(model, batches[0], outs[0])
+    out32 = compare_paths(model, batches[0], outs[0])
     log(f"phase compare: kernel vs plain DCNv3 path in f32 and bf16, "
         f"in {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -1419,7 +1907,13 @@ def main(argv: list[str]) -> None:
     fwd_ms = time_posenet(model, batches[0], card)
     profile_forward(model, batches[0], fwd_ms, card)
     log(f"phase serve timing: in {time.time() - t0:.1f} s")
-    del model, outs
+    t0 = time.time()
+    art_counts = serve_artifact(model, ModelConfig(), batches, outs, out32,
+                                {"dcnv3_fwd": 3}, card)
+    log(f"phase serve artifact: default ModelConfig exported, saved, "
+        f"loaded and served {REQUESTS} requests of batch {BATCH}, in "
+        f"{time.time() - t0:.1f} s")
+    del model, outs, out32
     torch.cuda.empty_cache()
 
     # serving, the fast configuration: windowed DCNv3 + int8 ConvNeXt MLP
@@ -1437,7 +1931,7 @@ def main(argv: list[str]) -> None:
         f"{', '.join(f'{100 * v:.2f} %' for v in shares)} of the DCNv3 "
         f"layers' samples, in {time.time() - t0:.1f} s")
     t0 = time.time()
-    compare_paths(model, batches[0], outs[0], cfg_fast)
+    out32 = compare_paths(model, batches[0], outs[0], cfg_fast)
     departure(model, cfg_fast, batches[0], outs[0])
     log(f"phase compare fast: kernel vs plain path (windowed DCNv3 and "
         f"int8 MLP) in f32 and bf16, in {time.time() - t0:.1f} s")
@@ -1447,8 +1941,28 @@ def main(argv: list[str]) -> None:
     fast_ms = time_posenet(model, batches[0], card)
     profile_forward(model, batches[0], fast_ms, card)
     log(f"phase serve fast timing: in {time.time() - t0:.1f} s")
-    del model, outs, batches
+    t0 = time.time()
+    art_fast_counts = serve_artifact(model, cfg_fast, batches, outs, out32,
+                                     {"dcnv3_win_fwd": 3, "int8_mlp": 30},
+                                     card)
+    log(f"phase serve fast artifact: dcn_window={WINDOW}, quant_dense=True "
+        f"exported, saved, loaded and served {REQUESTS} requests of batch "
+        f"{BATCH}, in {time.time() - t0:.1f} s")
+    del model, outs, out32, batches
     torch.cuda.empty_cache()
+
+    # the W8A8 dense path: QuantDense, quantize_activations ->
+    # quant_matmul_pre
+    t0 = time.time()
+    dense_counts, dense_dep = dense_path(gen)
+    log(f"phase dense: ConvNeXt-B stage-2 and stage-3 MLPs through "
+        f"QuantDense and quant_matmul_pre, {REQUESTS} requests of batch "
+        f"{BATCH}, launches {dense_counts}; int8 vs bf16 MLP max/max|bf16| "
+        f"{dense_dep:.3e}, in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    tot_qmm = time_qmm(gen, card)
+    time_dispatch(gen, card)
+    log(f"phase dense timing: in {time.time() - t0:.1f} s")
 
     # training, default Config
     t0 = time.time()
@@ -1518,6 +2032,7 @@ def main(argv: list[str]) -> None:
         "replaces": "givepose_tpu/ops/dcnv3_pallas.py:146",
         "launches": serve_counts["dcnv3_fwd"],
         "launches_by_path": {"serve": serve_counts["dcnv3_fwd"],
+                             "serve_artifact": art_counts["dcnv3_fwd"],
                              "train": train_counts["dcnv3_fwd"]},
         "max_abs_err": max(max_err, tot["err"]),
         "max_err": max(max_err, tot["err"]),
@@ -1559,6 +2074,7 @@ def main(argv: list[str]) -> None:
         "launches": fast_counts["dcnv3_win_fwd"],
         "launches_by_path": {
             "serve_fast": fast_counts["dcnv3_win_fwd"],
+            "serve_fast_artifact": art_fast_counts["dcnv3_win_fwd"],
             "train_window": win_train_counts["dcnv3_win_fwd"]},
         "max_abs_err": max(win_err, tot_win["err"]),
         # per PoseNet forward at batch 32: the three layers summed
@@ -1574,6 +2090,9 @@ def main(argv: list[str]) -> None:
         "source": "givepose_torch/csrc/int8_mlp.cu",
         "replaces": "givepose_tpu/ops/quant_matmul_pallas.py:251",
         "launches": fast_counts["int8_mlp"],
+        "launches_by_path": {
+            "serve_fast": fast_counts["int8_mlp"],
+            "serve_fast_artifact": art_fast_counts["int8_mlp"]},
         "max_abs_err": mlp_err,
         # per PoseNet forward at batch 32: 27 stage-2 and 3 stage-3 blocks
         "ms": tot_mlp["ms"],
@@ -1584,7 +2103,25 @@ def main(argv: list[str]) -> None:
         # it replaces, as a yardstick
         "library_ms": None,
         "bf16_mlp_ms": tot_mlp["bf16_ms"],
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "givepose_torch/csrc/int8_qmm.cu",
+        "replaces": f"givepose_tpu/ops/quant_matmul_pallas.py:{line}",
+        "launches": dense_counts[name],
+        "max_abs_err": err,
+        # the four batch-32 ConvNeXt-B MLP matmuls summed, bf16 x and out
+        "ms": tot_qmm[name]["ms"],
+        "plain_ms": tot_qmm[name]["plain_ms"],
+        "bound_ms": tot_qmm[name]["bound_ms"],
+        "bound_by": bound_by(tot_qmm[name]),
+        # no single PyTorch call computes dynamic W8A8; the bf16 matmuls
+        # it replaces and the bare int8 product, as yardsticks
+        "library_ms": None,
+        "bf16_linear_ms": tot_qmm[name]["bf16_linear_ms"],
+        "int_mm_ms": tot_qmm[name]["int_mm_ms"],
+    } for name, line, err in (("int8_qmm", 49, qmm_err),
+                              ("int8_qmm_pre", 74, qmm_pre_err))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -79,14 +79,17 @@ def _convert_leaf(leaf: str, v: np.ndarray) -> np.ndarray:
 
 
 def torch_key(flax_path: str) -> str:
-    """Flax path 'a/b/leaf' -> torch state_dict key 'a.b.leaf'."""
-    path, leaf = flax_path.rsplit("/", 1)
+    """Flax path 'a/b/leaf' -> torch state_dict key 'a.b.leaf'; a bare
+    leaf (the variables of a single layer, such as a ``QuantDense``) maps
+    to its torch name alone."""
+    path, _, leaf = flax_path.rpartition("/")
     path = "/" + path + "/"
     for pat, rep in _RENAMES:
         path = re.sub(pat, rep, path)
     if leaf not in _LEAVES:
         raise KeyError(f"no mapping for flax leaf {flax_path}")
-    return (path.strip("/") + "/" + _LEAVES[leaf]).replace("/", ".")
+    return (path.strip("/") + "/" + _LEAVES[leaf]).lstrip("/").replace(
+        "/", ".")
 
 
 def _torch_tree(tree, into: dict | None = None) -> dict[str, torch.Tensor]:
@@ -96,7 +99,7 @@ def _torch_tree(tree, into: dict | None = None) -> dict[str, torch.Tensor]:
         key = torch_key(path)
         if key in out:
             raise KeyError(f"two flax leaves map to {key}")
-        leaf = path.rsplit("/", 1)[1]
+        leaf = path.rsplit("/", 1)[-1]
         out[key] = torch.from_numpy(
             np.array(_convert_leaf(leaf, v), dtype=np.float32, order="C"))
     return out

@@ -160,13 +160,14 @@ def dcnv3_core_bwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     gradient, so the fractional part passes d(location) straight through;
     a corner outside the padded input contributes neither value nor
     gradient, and gradient landing in the pad band is dropped."""
-    with torch.enable_grad():
-        xs = x.detach().float().requires_grad_(True)
-        offs = offset.detach().float().requires_grad_(True)
-        ms = mask.detach().float().requires_grad_(True)
-        out = dcnv3_core(xs, offs, ms, kernel=kernel, stride=stride,
-                         pad=pad, dilation=dilation, group=group,
-                         offset_scale=offset_scale, window=window)
-        d_x, d_off, d_m = torch.autograd.grad(out, (xs, offs, ms),
-                                              grad_out.float())
+    def fwd(xs, offs, ms):
+        return dcnv3_core(xs, offs, ms, kernel=kernel, stride=stride,
+                          pad=pad, dilation=dilation, group=group,
+                          offset_scale=offset_scale, window=window)
+
+    # torch.func rather than torch.autograd.grad: it differentiates inside
+    # an operator's kernel too (ops/library.py), where autograd is off
+    _, vjp = torch.func.vjp(fwd, *(t.detach().float()
+                                   for t in (x, offset, mask)))
+    d_x, d_off, d_m = vjp(grad_out.float())
     return d_x, d_off, d_m

@@ -32,10 +32,15 @@ kernel).  Same warp layout as the forward; d_x is scattered with f32
 atomics, so its last bits vary from run to run.  Later work can cut the
 atomics (a shared-memory tile of d_x) and the repeated corner reads.
 
-``dcnv3`` dispatches: CPU tensors go to the plain ``dcnv3_core`` (autograd
-differentiates it), CUDA tensors to ``DCNv3Function`` (forward or windowed
-forward kernel, and the backward kernel).  There is no fallback from one
-to the other.
+``dcnv3`` dispatches through the ``torch.ops.givepose`` operators of
+``ops/library.py`` (``dcnv3_fwd``, ``dcnv3_win_fwd``, ``dcnv3_bwd``), whose
+CUDA implementations are the wrappers below and whose CPU implementations
+are the plain versions (``dcnv3_core``, ``dcnv3_core_bwd``): a CUDA tensor
+reaches a kernel or a raise, a CPU tensor the plain version.  There is no
+fallback from one to the other.  ``DCNv3Function`` joins the forward and
+backward operators where a gradient is wanted; without one the forward
+operator is called alone, which is what ``torch.export`` keeps in a
+serving graph.
 """
 
 from __future__ import annotations
@@ -222,11 +227,23 @@ def dcnv3_bwd_cuda(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
 dcnv3_bwd_cuda.launches = 0
 
 
+def _forward_op(x, offset, mask, kernel, stride, pad, dilation, group,
+                offset_scale, window):
+    """The forward operator: windowed when ``window`` > 0."""
+    if window > 0:
+        return torch.ops.givepose.dcnv3_win_fwd(
+            x, offset, mask, kernel, stride, pad, dilation, group,
+            offset_scale, window)
+    return torch.ops.givepose.dcnv3_fwd(x, offset, mask, kernel, stride, pad,
+                                        dilation, group, offset_scale)
+
+
 class DCNv3Function(torch.autograd.Function):
-    """DCNv3 on CUDA tensors: the forward kernel (window 0) or the
-    windowed forward kernel, and the backward kernel with the same window.
-    Returns f32 (N,Ho,Wo,G*gc); d_x comes back in x's dtype, as the
-    transpose of the JAX module's cast of ``x_proj`` to f32."""
+    """DCNv3 through the forward operator (window 0) or the windowed
+    forward operator, and the backward operator with the same window: on
+    CUDA tensors the kernels, on CPU tensors the plain versions.  Returns
+    f32 (N,Ho,Wo,G*gc); d_x comes back in x's dtype, as the transpose of
+    the JAX module's cast of ``x_proj`` to f32."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, kernel, stride, pad, dilation, group,
@@ -235,17 +252,13 @@ class DCNv3Function(torch.autograd.Function):
         ctx.kw = dict(kernel=kernel, stride=stride, pad=pad,
                       dilation=dilation, group=group,
                       offset_scale=offset_scale, window=window)
-        if window > 0:
-            return dcnv3_win_cuda(x, offset, mask, **ctx.kw)
-        kw = dict(ctx.kw)
-        del kw["window"]
-        return dcnv3_cuda(x, offset, mask, **kw)
+        return _forward_op(x, offset, mask, **ctx.kw)
 
     @staticmethod
     def backward(ctx, grad_out):
         x, offset, mask = ctx.saved_tensors
-        d_x, d_offset, d_mask = dcnv3_bwd_cuda(
-            x, offset, mask, grad_out.float().contiguous(), **ctx.kw)
+        d_x, d_offset, d_mask = torch.ops.givepose.dcnv3_bwd(
+            x, offset, mask, grad_out.float().contiguous(), *ctx.kw.values())
         return (d_x.to(x.dtype), d_offset, d_mask,
                 None, None, None, None, None, None, None)
 
@@ -254,16 +267,24 @@ def dcnv3(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
           kernel: int = 3, stride: int = 1, pad: int = 1, dilation: int = 1,
           group: int = 4, offset_scale: float = 1.0, window: int = 0,
           impl: str = "auto") -> torch.Tensor:
-    """DCNv3, f32 out, differentiable.  ``impl``: auto (kernels for CUDA
-    tensors, plain version for CPU tensors), cuda (kernels only), torch
-    (plain).  ``window`` > 0 clamps every sample to +-window px of its
-    query (the windowed kernel on CUDA tensors)."""
+    """DCNv3, f32 out, differentiable.  ``impl``: auto (the operators:
+    kernels for CUDA tensors, plain versions for CPU tensors), cuda
+    (kernels only), torch (the plain version's ops).  ``window`` > 0
+    clamps every sample to +-window px of its query (the windowed kernel
+    on CUDA tensors)."""
     if impl not in ("auto", "cuda", "torch"):
         raise ValueError(f"unknown dcn impl {impl!r}")
-    kw = dict(kernel=kernel, stride=stride, pad=pad, dilation=dilation,
-              group=group, offset_scale=offset_scale)
-    if impl == "torch" or (impl == "auto" and not x.is_cuda):
-        return dcnv3_core(x.float(), offset, mask, window=window, **kw)
-    return DCNv3Function.apply(x.contiguous(), offset.contiguous(),
-                               mask.contiguous(), kernel, stride, pad,
-                               dilation, group, offset_scale, window)
+    if impl == "torch":
+        return dcnv3_core(x.float(), offset, mask, kernel=kernel,
+                          stride=stride, pad=pad, dilation=dilation,
+                          group=group, offset_scale=offset_scale,
+                          window=window)
+    if impl == "cuda" and not x.is_cuda:
+        raise RuntimeError("dcnv3(impl='cuda') needs CUDA tensors; CPU "
+                           "tensors go to ops.dcnv3.dcnv3_core")
+    args = (x.contiguous(), offset.contiguous(), mask.contiguous(), kernel,
+            stride, pad, dilation, group, offset_scale, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args[:3]):
+        return DCNv3Function.apply(*args)
+    return _forward_op(*args)
+

@@ -1,40 +1,58 @@
-"""Fused W8A8 ConvNeXt MLP: the plain PyTorch version and the CUDA kernel.
+"""W8A8 int8 matmuls: the plain PyTorch versions and the CUDA kernels.
 
-Port of ``givepose_tpu/ops/quant_matmul_pallas.py``'s ``_apply_act``,
-``quantize_weights`` and ``convnext_mlp_int8``.  The whole MLP tail of a
-ConvNeXt block runs in int8 with dynamic per-row activation scales::
+Port of ``givepose_tpu/ops/quant_matmul_pallas.py``: ``_apply_act``,
+``quantize_weights``, ``quantize_activations``, the dense matmuls
+``quant_matmul_pallas`` / ``quant_dense`` (kernel ``_qmm_kernel``) and
+``quant_matmul_pre_pallas`` (``_qmm_pre_kernel``), and the fused ConvNeXt
+MLP ``convnext_mlp_int8`` (``_mlp_kernel``, ``_mlp_ln_kernel``).
 
-    out = residual + gamma * (act(y @ w0 + b0) @ w1 + b1)
+The plain versions follow the TPU kernels, not the JAX package's CPU
+fallbacks: the per-row activation scale inside a kernel is
+``max(amax, 1e-8) * (1/127)`` (the fallbacks divide by 127, which can
+differ by an ulp and flip a rounding).  ``quantize_activations`` and
+``quantize_weights`` divide by 127, as the JAX package does outside its
+kernels.  Rounding is half to even.  The int8 products are exact integer
+sums (taken here in float64, which holds them exactly, then rounded to f32
+as an int32 would be).
 
-with an optional LayerNorm prologue on y.  Both versions follow the TPU
-kernel's ``_mlp_core`` (``quant_matmul_pallas.py:219-237``), not the JAX
-package's CPU fallback: the activation scale is
-``max(amax, 1e-8) * (1/127)`` (the fallback divides by 127, which can
-differ by an ulp and flip a rounding).  Rounding is half to even.  The
-int8 products are exact integer sums (taken here in float64, which holds
-them exactly, then rounded to f32 as an int32 would be).
+The fused MLP: ``out = residual + gamma * (act(y @ w0 + b0) @ w1 + b1)``
+with an optional LayerNorm prologue on y.  The dense matmuls: ``act((x @
+wq) * scales + bias)`` with x quantized per row inside the kernel (B4) or
+before it (B5, whose epilogue is rounded to bf16 before the activation).
 
-``convnext_mlp_int8`` dispatches: a CPU tensor goes to ``mlp_int8_plain``,
-a CUDA tensor to the kernel ``givepose_torch/csrc/int8_mlp.cu``
-(``mlp_int8_cuda``, replacing ``_mlp_kernel`` and ``_mlp_ln_kernel``) or
-a raise.  There is no fallback.  Weights are quantized per output channel
-with plain tensor ops on every call, as the JAX package does in-graph.
-The kernel is bound by its int8 operations; see the source's note.
+Dispatch (``convnext_mlp_int8``, ``quant_dense``, ``quant_matmul_pre``)
+goes through the ``torch.ops.givepose`` operators of ``ops/library.py``: a
+CPU tensor reaches the plain version, a CUDA tensor the kernel
+(``csrc/int8_mlp.cu`` and ``csrc/int8_qmm.cu``) or a raise.  There is no
+fallback.  Weights are quantized per output channel with plain tensor ops
+on every call, as the JAX package does in-graph.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 
 import numpy as np
 import torch
 
 SOURCE = "int8_mlp.cu"
+QMM_SOURCE = "int8_qmm.cu"
 ACTS = {"none": 0, "gelu_tanh": 1, "gelu_exact": 2}
+IMPLS = ("auto", "cuda", "torch")
 # np.sqrt(2/pi) rounded to f32, as _apply_act takes it
 GELU_C = float(np.sqrt(2.0 / np.pi).astype(np.float32))
-_fn = []
+GELU_K = 0.044715
+# np.sqrt(2.0) as JAX takes it: a strongly typed scalar, f32
+SQRT2 = float(np.float32(np.sqrt(2.0)))
+# vector-load flags of csrc/int8_qmm.cu
+_VEC_X, _VEC_Q = 1, 2
+_fns: dict[str, object] = {}
+
+
+def _div(v: torch.Tensor, d: float) -> torch.Tensor:
+    """v / d in IEEE division on any device (PyTorch's CUDA division by a
+    Python number multiplies by its reciprocal instead)."""
+    return v / v.new_full((), d)
 
 
 def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -42,10 +60,33 @@ def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
     if act == "none":
         return y
     if act == "gelu_tanh":
-        cube = 0.044715 * y * y * y
+        cube = GELU_K * y * y * y
         return 0.5 * y * (1.0 + torch.tanh(GELU_C * (y + cube)))
     if act == "gelu_exact":
-        return 0.5 * y * (1.0 + torch.erf(y / math.sqrt(2.0)))
+        return 0.5 * y * (1.0 + torch.erf(_div(y, SQRT2)))
+    raise ValueError(f"unknown act {act!r}")
+
+
+def apply_act_bf16(y: torch.Tensor, act: str) -> torch.Tensor:
+    """``_apply_act`` on a bf16 y as the compiled JAX kernel computes it.
+    JAX's promotion: the weakly typed Python constants give bf16 ops
+    (0.044715 rounded to bf16 first), the strongly typed numpy constants
+    (the f32 c, np.sqrt(2.0)) f32 ops.  So the cube's three products and
+    ``0.5 * y`` are bf16, each rounded; the tanh's argument, ``y /
+    sqrt(2)``, ``1 + tanh`` and the last product are f32, which is what
+    this returns (y itself for ``none``).  The sum ``y + cube`` is a bf16
+    op that feeds the conversion to f32 at once; XLA computes it in f32
+    (its excess-precision allowance drops that rounding), and so does this
+    version: op-by-op evaluation in JAX would round it."""
+    if act == "none":
+        return y
+    half_y = (0.5 * y).float()
+    if act == "gelu_tanh":
+        cube = y.new_full((), GELU_K) * y * y * y
+        inner = (y.float() + cube.float()) * GELU_C
+        return half_y * (1.0 + torch.tanh(inner))
+    if act == "gelu_exact":
+        return half_y * (1.0 + torch.erf(_div(y.float(), SQRT2)))
     raise ValueError(f"unknown act {act!r}")
 
 
@@ -54,16 +95,26 @@ def quantize_weights(w: torch.Tensor, gamma: torch.Tensor | None = None
     """Per-output-channel symmetric int8 of w (K, N): (int8 (K, N),
     f32 (N,) scale), the layer scale gamma (N,) folded into the scale."""
     wf = w.float()
-    ws = torch.clamp_min(wf.abs().amax(dim=0), 1e-8) / 127.0
+    ws = _div(torch.clamp_min(wf.abs().amax(dim=0), 1e-8), 127.0)
     wq = torch.round(wf / ws).to(torch.int8)
     if gamma is not None:
         ws = ws * gamma.float()
     return wq, ws
 
 
+def quantize_activations(x: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8: (..., K) -> (int8 (..., K), f32 (..., 1)),
+    scale ``max(amax, 1e-8) / 127``."""
+    xf = x.float()
+    xs = _div(torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-8),
+              127.0)
+    return torch.round(xf / xs).to(torch.int8), xs
+
+
 def _quantize_rows(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row scale ``max(amax, 1e-8) * (1/127)`` and round(v / scale),
-    as ``_mlp_core``; the rounded values stay in f32."""
+    as the TPU kernels; the rounded values stay in f32."""
     scale = torch.clamp_min(v.abs().amax(dim=-1, keepdim=True),
                             1e-8) * (1.0 / 127.0)
     return torch.round(v / scale), scale
@@ -72,6 +123,41 @@ def _quantize_rows(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def _int8_matmul(q: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """Exact integer product of int8 values, rounded to f32."""
     return (q.double() @ wq.double()).float()
+
+
+def _epilogue(acc, xs, ws, bias) -> torch.Tensor:
+    """(acc * xs) * ws + b in f32; a missing bias adds zeros, as the TPU
+    wrappers pad it."""
+    b = torch.zeros_like(ws) if bias is None else bias.float()
+    return acc * xs * ws.float() + b
+
+
+def quant_matmul_plain(x, wq, ws, bias=None, act: str = "none",
+                       out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``_qmm_kernel`` (B4) on (M, K) rows x of any float dtype: wq (K, N)
+    int8 (or its values), ws (N,) f32, bias (N,) or None; per-row dynamic
+    quantization of x, the f32 epilogue and ``act`` in f32."""
+    xq, xs = _quantize_rows(x.float())
+    return apply_act(_epilogue(_int8_matmul(xq, wq), xs, ws, bias),
+                     act).to(out_dtype)
+
+
+def quant_matmul_pre_plain(xq, xs, wq, ws, bias=None, act: str = "none",
+                           out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``_qmm_pre_kernel`` (B5): xq (M, K) int8 and its scales xs (M,) or
+    (M, 1) f32; the f32 epilogue rounded to bf16, then ``act`` in JAX's
+    mixed bf16/f32 order (``apply_act_bf16``)."""
+    y = _epilogue(_int8_matmul(xq, wq), xs.reshape(-1, 1).float(), ws,
+                  bias)
+    return apply_act_bf16(y.to(torch.bfloat16), act).to(out_dtype)
+
+
+def qmm_flip(x, wq, ws) -> float:
+    """How far a one-step flip of one quantized x value can move an output
+    of ``quant_matmul_plain`` (before the activation, whose slope is at
+    most 1.13): max_row(xs) * max|wq * ws|."""
+    xs = _quantize_rows(x.float())[1].max()
+    return (xs * (wq.float() * ws.float()).abs().max()).item()
 
 
 def _hidden(y, w0q, s0, b0, act, ln) -> torch.Tensor:
@@ -106,16 +192,32 @@ def requant_flip(y, w0q, s0, b0, w1q, s1, act="gelu_tanh", ln=None) -> float:
     return (hs * (w1q.float() * s1).abs().max()).item()
 
 
-def _kernel():
-    if not _fn:
+def _kernel(source: str, name: str, argtypes: list):
+    if name not in _fns:
         from givepose_torch.ops._build import load_library
 
-        fn = load_library(SOURCE).int8_mlp
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
+        fn = getattr(load_library(source), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _fn.append(fn)
-    return _fn[0]
+        _fns[name] = fn
+    return _fns[name]
+
+
+def _check(tensors: dict, device) -> None:
+    """Each of {name: (tensor, dtype or tuple of dtypes, shape)} has that
+    dtype and shape, lies on ``device`` and is contiguous; raise if not."""
+    for name, (t, dtype, shape) in tensors.items():
+        dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}"
+                            f", got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+        if t.device != device:
+            raise RuntimeError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def mlp_int8_cuda(y, residual, w0t, s0, b0, w1t, s1, b1, act="gelu_tanh",
@@ -143,7 +245,8 @@ def mlp_int8_cuda(y, residual, w0t, s0, b0, w1t, s1, b1, act="gelu_tanh",
         raise ValueError("tensor too large for the kernel's 32-bit shapes")
     ln_args = (None,) * 4 if ln is None else (
         ln[0].reshape(m), ln[1].reshape(m), ln[2], ln[3])
-    expect = {"residual": (residual, y.dtype, (m, c)),
+    expect = {"y": (y, y.dtype, (m, c)),
+              "residual": (residual, y.dtype, (m, c)),
               "w0t": (w0t, torch.int8, (hd, c)),
               "w1t": (w1t, torch.int8, (c, hd)),
               "s0": (s0, torch.float32, (hd,)),
@@ -154,27 +257,18 @@ def mlp_int8_cuda(y, residual, w0t, s0, b0, w1t, s1, b1, act="gelu_tanh",
         expect.update({name: (t, torch.float32, shape) for name, t, shape in
                        zip(("mu", "rsig", "ln_g", "ln_b"), ln_args,
                            ((m,), (m,), (c,), (c,)))})
-    for name, (t, dtype, shape) in {"y": (y, y.dtype, (m, c)),
-                                    **expect}.items():
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{shape}")
-        if t.device != y.device:
-            raise RuntimeError(f"{name} is on {t.device}, y on {y.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check(expect, y.device)
     out = torch.empty_like(y)
     ptr = [0 if t is None else t.data_ptr() for t in ln_args]
+    fn = _kernel(SOURCE, "int8_mlp", [ctypes.c_void_p] * 13
+                 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = _kernel()(
-            y.data_ptr(), residual.data_ptr(), out.data_ptr(),
-            w0t.data_ptr(), s0.data_ptr(), b0.data_ptr(), w1t.data_ptr(),
-            s1.data_ptr(), b1.data_ptr(), *ptr, m, c, hd,
-            int(y.dtype == torch.bfloat16), ACTS[act], int(ln is not None),
-            stream)
+        err = fn(y.data_ptr(), residual.data_ptr(), out.data_ptr(),
+                 w0t.data_ptr(), s0.data_ptr(), b0.data_ptr(),
+                 w1t.data_ptr(), s1.data_ptr(), b1.data_ptr(), *ptr, m, c,
+                 hd, int(y.dtype == torch.bfloat16), ACTS[act],
+                 int(ln is not None), stream)
     if err != 0:
         raise RuntimeError(f"int8_mlp launch failed: cudaError {err}")
     mlp_int8_cuda.launches += 1
@@ -182,6 +276,154 @@ def mlp_int8_cuda(y, residual, w0t, s0, b0, w1t, s1, b1, act="gelu_tanh",
 
 
 mlp_int8_cuda.launches = 0
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _qmm_args(x, wt, ws, bias, act, out_dtype, caller):
+    """Raise unless the B4/B5 operands fit the kernels: x (M, K), wt (N, K)
+    int8, ws (N,) f32, bias (N,) f32 or None, contiguous on x's CUDA
+    device; returns (m, n, k)."""
+    if not x.is_cuda:
+        raise RuntimeError(f"{caller} needs CUDA tensors; CPU tensors go to "
+                           "the plain version")
+    if act not in ACTS:
+        raise ValueError(f"unknown act {act!r}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype must be bf16 or f32, got {out_dtype}")
+    if x.dim() != 2 or wt.dim() != 2:
+        raise ValueError(f"x and wt must be 2-d, got {tuple(x.shape)} and "
+                         f"{tuple(wt.shape)}")
+    (m, k), n = x.shape, wt.shape[0]
+    if n == 0 or k == 0:
+        raise ValueError(f"N={n} and K={k} must be positive")
+    if max(m, n) * k >= 2 ** 31 or m * n >= 2 ** 31:
+        raise ValueError("tensor too large for the kernel's 32-bit shapes")
+    expect = {"wt": (wt, torch.int8, (n, k)),
+              "ws": (ws, torch.float32, (n,))}
+    if bias is not None:
+        expect["bias"] = (bias, torch.float32, (n,))
+    _check(expect, x.device)
+    return m, n, k
+
+
+def qmm_cuda(x, wt, ws, bias=None, act: str = "none",
+             out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Launch B4 (``int8_qmm``): x (M, K) bf16 or f32, quantized per row in
+    the kernel; wt (N, K) int8, the quantized weights transposed; ws (N,)
+    f32; bias (N,) f32 or None; all contiguous on one CUDA device.
+    Returns (M, N) in ``out_dtype`` (bf16 or f32)."""
+    m, n, k = _qmm_args(x, wt, ws, bias, act, out_dtype, "qmm_cuda")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x must be bf16 or f32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    flags = ((_VEC_X if _aligned(x) and k * x.element_size() % 16 == 0
+              else 0)
+             | (_VEC_Q if _aligned(wt) and k % 16 == 0 else 0))
+    fn = _kernel(QMM_SOURCE, "int8_qmm",
+                 [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                 wt.data_ptr(), ws.data_ptr(),
+                 None if bias is None else bias.data_ptr(), out.data_ptr(),
+                 int(out_dtype == torch.bfloat16), m, n, k, ACTS[act], flags,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"int8_qmm launch failed: cudaError {err}")
+    qmm_cuda.launches += 1
+    return out
+
+
+qmm_cuda.launches = 0
+
+
+def qmm_pre_cuda(xq, xs, wt, ws, bias=None, act: str = "none",
+                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Launch B5 (``int8_qmm_pre``): xq (M, K) int8 and xs (M,) f32, the
+    activations quantized before the call; the other operands as
+    ``qmm_cuda``."""
+    m, n, k = _qmm_args(xq, wt, ws, bias, act, out_dtype, "qmm_pre_cuda")
+    _check({"xq": (xq, torch.int8, (m, k)),
+            "xs": (xs, torch.float32, (m,))}, xq.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    flags = _VEC_Q if _aligned(xq, wt) and k % 16 == 0 else 0
+    fn = _kernel(QMM_SOURCE, "int8_qmm_pre", [ctypes.c_void_p] * 6
+                 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        err = fn(xq.data_ptr(), xs.data_ptr(), wt.data_ptr(), ws.data_ptr(),
+                 None if bias is None else bias.data_ptr(), out.data_ptr(),
+                 int(out_dtype == torch.bfloat16), m, n, k, ACTS[act], flags,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"int8_qmm_pre launch failed: cudaError {err}")
+    qmm_pre_cuda.launches += 1
+    return out
+
+
+qmm_pre_cuda.launches = 0
+
+
+def _route(impl: str, x: torch.Tensor, caller: str) -> bool:
+    """Whether ``impl`` sends x to the plain version directly (``torch``);
+    otherwise it goes through the operator, which picks by device.  Raises
+    on an unknown impl and on ``cuda`` for a tensor off the GPU."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown quant impl {impl!r}")
+    if impl == "cuda" and not x.is_cuda:
+        raise RuntimeError(f"{caller}(impl='cuda') needs CUDA tensors")
+    return impl == "torch"
+
+
+def quant_dense(x, w, bias=None, act: str = "none", gamma=None,
+                out_dtype=torch.bfloat16, impl: str = "auto"
+                ) -> torch.Tensor:
+    """W8A8 dense: (..., K) x (K, N) with per-row dynamic quantization of
+    x inside the kernel (B4), optional bias and activation.  w (K, N) f32
+    master weights, quantized per output channel here (``gamma`` (N,)
+    folded into the scale).  ``impl``: auto (kernel for CUDA tensors, plain
+    version for CPU tensors), cuda, torch."""
+    if act not in ACTS:
+        raise ValueError(f"unknown act {act!r}")
+    lead, k, n = x.shape[:-1], x.shape[-1], w.shape[-1]
+    x2 = x.reshape(-1, k)
+    wq, ws = quantize_weights(w, gamma)
+    b = None if bias is None else bias.float()
+    if _route(impl, x, "quant_dense"):
+        y = quant_matmul_plain(x2, wq, ws, b, act, out_dtype)
+    else:
+        y = torch.ops.givepose.int8_qmm(
+            x2.contiguous(), wq.t().contiguous(), ws.contiguous(),
+            None if b is None else b.contiguous(), act, out_dtype)
+    return y.reshape(*lead, n)
+
+
+def quant_matmul_pre(xq, xs, wq, ws, bias=None, act: str = "none",
+                     out_dtype=torch.bfloat16, impl: str = "auto"
+                     ) -> torch.Tensor:
+    """W8A8 matmul on pre-quantized activations (B5): xq (..., K) int8 and
+    xs (..., 1) f32 (``quantize_activations``), wq (K, N) int8 and ws (N,)
+    f32 (``quantize_weights``), bias (N,) or None.  The epilogue is
+    rounded to bf16 before ``act``.  ``impl`` as ``quant_dense``."""
+    if act not in ACTS:
+        raise ValueError(f"unknown act {act!r}")
+    lead, k, n = xq.shape[:-1], xq.shape[-1], wq.shape[-1]
+    xq2, xs2 = xq.reshape(-1, k), xs.reshape(-1).float()
+    b = None if bias is None else bias.float()
+    if _route(impl, xq, "quant_matmul_pre"):
+        y = quant_matmul_pre_plain(xq2, xs2, wq, ws, b, act, out_dtype)
+    else:
+        y = torch.ops.givepose.int8_qmm_pre(
+            xq2.contiguous(), xs2.contiguous(), wq.t().contiguous(),
+            ws.float().contiguous(), None if b is None else b.contiguous(),
+            act, out_dtype)
+    return y.reshape(*lead, n)
 
 
 def convnext_mlp_int8(y, residual, w0, b0, w1, b1, gamma,
@@ -196,8 +438,6 @@ def convnext_mlp_int8(y, residual, w0, b0, w1, b1, gamma,
     rsig per position (..., 1); ln_g, ln_b (C,)).  ``impl``: auto (kernel
     for CUDA tensors, plain version for CPU tensors), cuda, torch.  The
     kernel writes y's dtype, which must then be ``out_dtype``."""
-    if impl not in ("auto", "cuda", "torch"):
-        raise ValueError(f"unknown quant impl {impl!r}")
     lead, c = y.shape[:-1], y.shape[-1]
     y2 = y.reshape(-1, c)
     r2 = residual.reshape(-1, c)
@@ -210,15 +450,17 @@ def convnext_mlp_int8(y, residual, w0, b0, w1, b1, gamma,
         ln = (mu.reshape(-1, 1).float().contiguous(),
               rsig.reshape(-1, 1).float().contiguous(),
               ln_g.float().contiguous(), ln_b.float().contiguous())
-    if impl == "torch" or (impl == "auto" and not y.is_cuda):
+    if _route(impl, y, "convnext_mlp_int8"):
         out = mlp_int8_plain(y2, r2, w0q, s0, b0f, w1q, s1, b1g, act,
                              out_dtype, ln)
     else:
-        if out_dtype != y.dtype:
+        if y.is_cuda and out_dtype != y.dtype:
             raise TypeError(f"the kernel writes y's dtype {y.dtype}, not "
                             f"{out_dtype}")
-        out = mlp_int8_cuda(y2.contiguous(), r2.contiguous(),
-                            w0q.t().contiguous(), s0.contiguous(),
-                            b0f.contiguous(), w1q.t().contiguous(),
-                            s1.contiguous(), b1g.contiguous(), act, ln)
+        out = torch.ops.givepose.int8_mlp(
+            y2.contiguous(), r2.contiguous(), w0q.t().contiguous(),
+            s0.contiguous(), b0f.contiguous(), w1q.t().contiguous(),
+            s1.contiguous(), b1g.contiguous(), act, out_dtype,
+            *((None,) * 4 if ln is None else ln))
     return out.reshape(*lead, c)
+

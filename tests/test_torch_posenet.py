@@ -171,7 +171,8 @@ def test_train_raises(batch):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, chip_smoke.py and the GPU scripts under
+    """Every module of the port (the operator library, the W8A8 layer and
+    the export CLI named as well), chip_smoke.py and the GPU scripts under
     tools/ import without JAX."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -179,6 +180,8 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(givepose_torch.__path__, "
         "'givepose_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import givepose_torch.ops.library, givepose_torch.models.quant\n"
+        "import givepose_torch.cli.export, givepose_torch.eval\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'tools')\n"
         "import train_path_spread\n"
@@ -190,4 +193,4 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 29
+    assert int(res.stdout.strip()) >= 33

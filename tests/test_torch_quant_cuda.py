@@ -1,5 +1,7 @@
-"""The fused int8 ConvNeXt MLP kernel against its plain PyTorch version, on
-the GPU.
+"""The int8 kernels against their plain PyTorch versions, on the GPU: the
+fused ConvNeXt MLP (``int8_mlp``), the W8A8 dense matmuls (``int8_qmm``,
+``int8_qmm_pre``) and ``QuantDense``; and each ``torch.ops.givepose``
+operator launching its kernel.
 
 Every test carries the ``cuda`` marker and skips without a GPU; the file
 imports no JAX (run it with ``--noconftest`` on a machine without JAX, as
@@ -151,3 +153,173 @@ def test_quant_convnext_runs_the_kernel(cuda):
     assert torch.isfinite(out).all()
     d = (out.float() - ref.float()).abs()
     assert d.mean().item() <= 1e-2 * ref.float().abs().mean().item()
+
+
+# W8A8 dense kernels (int8_qmm, B4; int8_qmm_pre, B5) against their plain
+# versions.  Both compute the same int8 values and f32 steps, so they differ
+# only where tanhf or erff differs from PyTorch's: bars of one-step flips of
+# a quantized x value (B4) plus 2 ulp of the output dtype at max|ref|, and
+# 1e-3 * mean|ref| on average.
+# (M, K, N): ragged M and N, K with 16-byte rows (vector loads), K a
+# multiple of 8 only, K odd (scalar loads everywhere), a 128-row tile grid
+QMM_SHAPES = [(77, 96, 48), (200, 520, 130), (33, 100, 250), (5, 37, 19),
+              (1024, 512, 384)]
+
+
+def qmm_inputs(seed, m, k, n, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(m, k, generator=g, device=device) * 2.0,
+            torch.randn(k, n, generator=g, device=device) * k ** -0.5,
+            torch.randn(n, generator=g, device=device) * 0.1)
+
+
+def qmm_bars(ref, flip=0.0):
+    ulp = 2.0 ** -7 if ref.dtype == torch.bfloat16 else 2.0 ** -23
+    top = ref.float().abs()
+    return 3 * 1.13 * flip + 2 * ulp * top.max().item(), \
+        1e-3 * top.mean().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["none", "gelu_tanh", "gelu_exact"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", QMM_SHAPES)
+def test_qmm_matches_plain(cuda, act, dtype, m, k, n):
+    from givepose_torch.ops.quant_matmul import (qmm_cuda, qmm_flip,
+                                                 quant_matmul_plain)
+
+    x, w, b = qmm_inputs(m + k + n, m, k, n, cuda)
+    x = x.to(dtype)
+    wq, ws = quantize_weights(w)
+    qmm_cuda.launches = 0
+    out = qmm_cuda(x, wq.t().contiguous(), ws, b, act, dtype)
+    ref = quant_matmul_plain(x, wq, ws, b, act, dtype)
+    torch.cuda.synchronize()
+    assert qmm_cuda.launches == 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    d = (out.float() - ref.float()).abs()
+    max_bar, mean_bar = qmm_bars(ref, qmm_flip(x, wq, ws))
+    assert d.max().item() <= max_bar, (d.max().item(), max_bar)
+    assert d.mean().item() <= mean_bar, (d.mean().item(), mean_bar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["none", "gelu_tanh", "gelu_exact"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", QMM_SHAPES)
+def test_qmm_pre_matches_plain(cuda, act, dtype, m, k, n):
+    from givepose_torch.ops.quant_matmul import (qmm_pre_cuda,
+                                                 quant_matmul_pre_plain,
+                                                 quantize_activations)
+
+    x, w, b = qmm_inputs(2 * m + k, m, k, n, cuda)
+    xq, xs = quantize_activations(x)
+    wq, ws = quantize_weights(w)
+    qmm_pre_cuda.launches = 0
+    out = qmm_pre_cuda(xq, xs.reshape(-1), wq.t().contiguous(), ws, b, act,
+                       dtype)
+    ref = quant_matmul_pre_plain(xq, xs, wq, ws, b, act, dtype)
+    torch.cuda.synchronize()
+    assert qmm_pre_cuda.launches == 1
+    d = (out.float() - ref.float()).abs()
+    max_bar, mean_bar = qmm_bars(ref)
+    assert d.max().item() <= max_bar, (d.max().item(), max_bar)
+    assert d.mean().item() <= mean_bar, (d.mean().item(), mean_bar)
+
+
+@pytest.mark.cuda
+def test_qmm_rejects(cuda):
+    from givepose_torch.ops.quant_matmul import qmm_cuda, qmm_pre_cuda
+
+    x, w, b = qmm_inputs(9, 16, 64, 32, cuda)
+    wq, ws = quantize_weights(w)
+    wt = wq.t().contiguous()
+    qmm_cuda.launches = qmm_pre_cuda.launches = 0
+    with pytest.raises(RuntimeError, match="CUDA"):       # a CPU tensor
+        qmm_cuda(x.cpu(), wt, ws)
+    with pytest.raises(TypeError):                          # f16 x
+        qmm_cuda(x.half(), wt, ws)
+    with pytest.raises(ValueError):                         # (K, N) weights
+        qmm_cuda(x, wq, ws)
+    with pytest.raises(ValueError):                         # non-contiguous
+        qmm_cuda(x.t().contiguous().t(), wt, ws)
+    with pytest.raises(TypeError):                          # f32 x as xq
+        qmm_pre_cuda(x, torch.ones(16, device=cuda), wt, ws)
+    with pytest.raises(ValueError):
+        qmm_cuda(x, wt, ws, act="relu")
+    assert qmm_cuda.launches == qmm_pre_cuda.launches == 0
+
+
+@pytest.mark.cuda
+def test_quant_dense_layer_on_card(cuda):
+    """QuantDense (make_dense(True, ...)) from a bf16 Linear's state dict:
+    one int8_qmm launch per call, the plain path's output up to flips, and
+    close to the Linear it replaces."""
+    from givepose_torch.models.quant import make_dense
+    from givepose_torch.ops.quant_matmul import qmm_cuda, quant_dense
+
+    dense = make_dense(False, 512, 2048, torch.bfloat16).to(cuda)
+    torch.nn.init.normal_(dense.weight, 0, 512 ** -0.5)
+    q = make_dense(True, 512, 2048, torch.bfloat16, act="gelu_tanh")
+    q.load_state_dict(dense.state_dict(), strict=True)
+    q = q.to(cuda)
+    x = torch.randn(2, 16, 16, 512, device=cuda, dtype=torch.bfloat16)
+    qmm_cuda.launches = 0
+    with torch.inference_mode():
+        out = q(x)
+        ref = quant_dense(x, q.weight.t(), q.bias, act="gelu_tanh",
+                          impl="torch")
+        want = torch.nn.functional.gelu(dense(x), approximate="tanh")
+    torch.cuda.synchronize()
+    assert qmm_cuda.launches == 1
+    assert out.shape == (2, 16, 16, 2048) and out.dtype == torch.bfloat16
+    d = (out.float() - ref.float()).abs()
+    assert d.mean().item() <= 1e-3 * ref.float().abs().mean().item()
+    rel = ((out.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    assert rel < 0.05, rel
+
+
+@pytest.mark.cuda
+def test_operators_launch_their_kernels(cuda):
+    """Each torch.ops.givepose operator on CUDA tensors launches its
+    kernel once (the wrapper's count goes up by one)."""
+    from givepose_torch.ops.dcnv3_cuda import (dcnv3_bwd_cuda, dcnv3_cuda,
+                                               dcnv3_win_cuda)
+    from givepose_torch.ops.quant_matmul import (qmm_cuda, qmm_pre_cuda,
+                                                 quantize_activations)
+
+    ops = torch.ops.givepose
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(1, 10, 10, 128, generator=g, device=cuda)
+    off = torch.randn(1, 5, 5, 72, generator=g, device=cuda)
+    msk = torch.softmax(torch.randn(1, 5, 5, 4, 9, generator=g, device=cuda),
+                        -1).reshape(1, 5, 5, 36)
+    go = torch.randn(1, 5, 5, 128, generator=g, device=cuda)
+    inp = make_inputs(4, 32, 64, 256, cuda)
+    w0q, s0 = quantize_weights(inp["w0"])
+    w1q, s1 = quantize_weights(inp["w1"])
+    xq, xs = quantize_activations(inp["y"])
+    calls = {
+        dcnv3_cuda: lambda: ops.dcnv3_fwd(x, off, msk, 3, 2, 1, 1, 4, 1.0),
+        dcnv3_win_cuda: lambda: ops.dcnv3_win_fwd(x, off, msk, 3, 2, 1, 1,
+                                                  4, 1.0, 4),
+        dcnv3_bwd_cuda: lambda: ops.dcnv3_bwd(x, off, msk, go, 3, 2, 1, 1,
+                                              4, 1.0, 0),
+        mlp_int8_cuda: lambda: ops.int8_mlp(
+            inp["y"], inp["residual"], w0q.t().contiguous(), s0, inp["b0"],
+            w1q.t().contiguous(), s1, inp["b1"], "gelu_tanh",
+            torch.float32, None, None, None, None),
+        qmm_cuda: lambda: ops.int8_qmm(inp["y"], w0q.t().contiguous(), s0,
+                                       inp["b0"], "none", torch.bfloat16),
+        qmm_pre_cuda: lambda: ops.int8_qmm_pre(
+            xq, xs.reshape(-1), w0q.t().contiguous(), s0, None, "gelu_tanh",
+            torch.float32),
+    }
+    for wrapper, call in calls.items():
+        wrapper.launches = 0
+        out = call()
+        torch.cuda.synchronize()
+        assert wrapper.launches == 1, wrapper.__name__
+        outs = out if isinstance(out, tuple) else (out,)
+        assert all(o.is_cuda and torch.isfinite(o).all() for o in outs)
