@@ -19,7 +19,10 @@ Phases, each of which exits non-zero when it fails:
      column tiles, and for the backward the tie case (window 1, zero
      offsets, where d_offset is half the unclamped one);
    - the fused int8 ConvNeXt MLP at the stage-2 and stage-3 shapes of
-     batch 32, with and without its LayerNorm prologue;
+     batch 32, with and without its LayerNorm prologue, in bf16 and f32,
+     and at the edges of its tiling: M 37 short of a multiple of its 64-row
+     tile, M below one tile, C 64, 256-column blocks (C 768) and a half
+     last hidden chunk (H 320);
    - the W8A8 dense matmuls (``int8_qmm``, x quantized in the kernel, and
      ``int8_qmm_pre``, x quantized before) at the four ConvNeXt-B MLP
      matmul shapes of batch 32 and at ragged shapes, x and out in bf16 and
@@ -52,8 +55,10 @@ Phases, each of which exits non-zero when it fails:
    version, in an f32 copy at batch 8 (and the backward kernel on that
    step's own tensors against the plain backward) and in bf16;
 7. time each kernel per layer, block or matmul at the path's shapes
-   (kernel, plain version, bound; for the int8 MLP also the bf16 block MLP
-   it replaces; for the dense matmuls the bf16 ``F.linear`` and
+   (kernel, plain version, bound; for the int8 MLP also the bound of the
+   operations its two-pass design executes, TOP/s, the bf16 block MLP it
+   replaces, the ratio of the two per forward and the earlier mma.sync
+   design's time; for the dense matmuls the bf16 ``F.linear`` and
    ``torch._int_mm`` on the same operands), the PoseNet forward of both
    configurations, eager and from its artifact, and the train step of both
    with CUDA events, break the forwards' and the default
@@ -125,6 +130,17 @@ INT8_OPS_PER_S = 1979e12   # H100 SXM dense int8 tensor-core peak
 # blocks, rows M, width C); H = 4 C
 MLP_STAGES = [("stage2", 27, BATCH * 16 * 16, 512),
               ("stage3", 3, BATCH * 8 * 8, 1024)]
+# edges of the kernel's tiling (64-row tiles, 128-column hidden chunks, NB
+# output columns per block): (name, M, C, H)
+MLP_EDGE_CASES = [("ragged_tile", BATCH * 16 * 16 - 37, 512, 2048),
+                  ("below_tile", 40, 512, 2048),
+                  ("c64", 200, 64, 256),
+                  ("nb256", 130, 768, 3072),
+                  ("half_chunk", 70, 192, 320)]
+# the fused int8 MLP per fast forward in its earlier mma.sync design
+# (weights streamed from L2 into every 16- or 8-row block), as PERF.md
+# records it on the H100
+MLP_MMA_SYNC_MS = 8.272
 
 # W8A8 dense matmuls (B4, B5) at the ConvNeXt-B MLP shapes of batch 32:
 # (name, M, K, N, the layer's activation)
@@ -1178,14 +1194,14 @@ def check_win_bwd_kernel(gen) -> float:
     return worst
 
 
-def mlp_inputs(gen, m: int, c: int, dtype) -> dict:
+def mlp_inputs(gen, m: int, c: int, dtype, hd: int = 0) -> dict:
     """A ConvNeXt block's int8-MLP operands: the raw depthwise-conv map y
     and the residual in ``dtype``, LN statistics of y, LN affine near
     (1, 0), weights N(0, 1/fan_in), small biases and O(1) layer scales
-    U(0.2, 1)."""
+    U(0.2, 1); H = ``hd`` or 4 C."""
     import torch
 
-    hd = 4 * c
+    hd = hd or 4 * c
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=gen.device) * scale
@@ -1235,41 +1251,59 @@ def mlp_bars(plain_args, ref) -> tuple[float, float]:
             MLP_MEAN_BAR * top.mean().item())
 
 
+def mlp_block_cols(c: int) -> int:
+    """Output columns per block of the int8 MLP kernel at width C, for the
+    log: the rule of ``block_cols`` in givepose_torch/csrc/int8_mlp.cu."""
+    return next(nb for nb in (512, 256, 64) if c % nb == 0)
+
+
+def mlp_kernel_ops(m: int, c: int, hd: int) -> int:
+    """int8 operations the int8 MLP kernel executes on (M, C) rows and H
+    hidden columns: the first product once per pass (two) and per column
+    block, the second once; 2 M C H per product."""
+    return 2 * m * c * hd * (2 * (c // mlp_block_cols(c)) + 1)
+
+
 def check_mlp_kernel(gen) -> float:
     """Phase 3, the fused int8 MLP kernel against its plain version at the
     stage-2 and stage-3 shapes of batch 32, with the LN prologue (the
-    model's variant) and without, in bf16 and (with LN) f32; returns the
-    largest max abs error."""
+    model's variant) and without, in bf16 and (with LN) f32, and at the
+    edges of its tiling (MLP_EDGE_CASES) with LN in bf16 and raw in f32;
+    returns the largest max abs error."""
     import torch
 
-    from givepose_torch.ops.quant_matmul import mlp_int8_cuda, mlp_int8_plain
+    from givepose_torch.ops.quant_matmul import (mlp_int8_cuda,
+                                                 mlp_int8_plain)
 
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(name, m, c, 4 * c, variant) for name, _, m, c in MLP_STAGES
+             for variant in ((True, bf16), (False, bf16), (True, f32))]
+    cases += [(name, m, c, hd, variant) for name, m, c, hd in MLP_EDGE_CASES
+              for variant in ((True, bf16), (False, f32))]
     worst = 0.0
-    for name, _, m, c in MLP_STAGES:
-        for with_ln, dtype in ((True, torch.bfloat16), (False, torch.bfloat16),
-                               (True, torch.float32)):
-            inp = mlp_inputs(gen, m, c, dtype)
-            kernel_args, plain_args = mlp_operands(inp, with_ln)
-            out = mlp_int8_cuda(*kernel_args)
-            ref = mlp_int8_plain(*plain_args)
-            torch.cuda.synchronize()
-            d = (out.float() - ref.float()).abs()
-            max_bar, mean_bar = mlp_bars(plain_args, ref)
-            err, mean = d.max().item(), d.mean().item()
-            ok = err <= max_bar and mean <= mean_bar
-            worst = max(worst, err)
-            moved = (ref.float() - inp["residual"].float()).abs().mean()
-            # not vacuous: the MLP branch shows in the output
-            ok = ok and moved.item() > 1e-2
-            log(f"  int8_mlp {name} ({m}, {c}) "
-                f"{'ln ' if with_ln else 'raw'} {str(dtype).split('.')[1]:<8} "
-                f"max_abs_err {err:.3e} (bar {max_bar:.3e}) mean {mean:.3e} "
-                f"(bar {mean_bar:.3e}), {int((d > 0).sum())} of {d.numel()} "
-                f"outputs differ; MLP branch mean |out - res| "
-                f"{moved.item():.3f} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"int8_mlp disagrees with mlp_int8_plain on {name} "
-                     f"{dtype} {'ln' if with_ln else 'raw'}")
+    for name, m, c, hd, (with_ln, dtype) in cases:
+        inp = mlp_inputs(gen, m, c, dtype, hd)
+        kernel_args, plain_args = mlp_operands(inp, with_ln)
+        out = mlp_int8_cuda(*kernel_args)
+        ref = mlp_int8_plain(*plain_args)
+        torch.cuda.synchronize()
+        d = (out.float() - ref.float()).abs()
+        max_bar, mean_bar = mlp_bars(plain_args, ref)
+        err, mean = d.max().item(), d.mean().item()
+        ok = err <= max_bar and mean <= mean_bar
+        worst = max(worst, err)
+        moved = (ref.float() - inp["residual"].float()).abs().mean()
+        # not vacuous: the MLP branch shows in the output
+        ok = ok and moved.item() > 1e-2
+        log(f"  int8_mlp {name} ({m}, {c}, H {hd}; {c // mlp_block_cols(c)}"
+            f" column block(s)) {'ln ' if with_ln else 'raw'} "
+            f"{str(dtype).split('.')[1]:<8} max_abs_err {err:.3e} (bar "
+            f"{max_bar:.3e}) mean {mean:.3e} (bar {mean_bar:.3e}), "
+            f"{int((d > 0).sum())} of {d.numel()} outputs differ; MLP branch "
+            f"mean |out - res| {moved.item():.3f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"int8_mlp disagrees with mlp_int8_plain on {name} {dtype} "
+                 f"{'ln' if with_ln else 'raw'}")
     return worst
 
 
@@ -1339,19 +1373,22 @@ def time_mlp(gen, card: str, reps: int = 20) -> dict:
     """Phase 7: the int8 MLP kernel (LN variant, bf16) per block of each
     int8 stage at batch 32, against its bound (operations: 16 M C^2 int8
     ops at 1979 TOP/s; bytes: y, residual, out in bf16, both int8 weight
-    matrices, LN statistics), its plain version, and the bf16 block MLP
-    it replaces (fc1 -> tanh GELU -> fc2 -> x + y * gamma, as the
-    unquantized ConvNeXt block runs it, without the LN), summed per
-    forward over the 27 + 3 blocks.  Weights are quantized outside the
-    timed call."""
+    matrices, LN statistics), the bound of the operations its design
+    executes (the first product once per pass and column block:
+    ``mlp_kernel_ops``), its plain version, and the bf16 block MLP it
+    replaces (fc1 -> tanh GELU -> fc2 -> x + y * gamma, as the unquantized
+    ConvNeXt block runs it, without the LN), summed per forward over the
+    27 + 3 blocks and set beside the earlier mma.sync design.  Weights
+    are quantized outside the timed call."""
     import torch
     import torch.nn.functional as F
 
-    from givepose_torch.ops.quant_matmul import mlp_int8_cuda, mlp_int8_plain
+    from givepose_torch.ops.quant_matmul import (mlp_int8_cuda,
+                                                 mlp_int8_plain)
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
-                 bf16_ms=0.0)
+                 run_ops_ms=0.0, bf16_ms=0.0)
     for name, blocks, m, c in MLP_STAGES:
         inp = mlp_inputs(gen, m, c, torch.bfloat16)
         kernel_args, plain_args = mlp_operands(inp, True)
@@ -1369,23 +1406,31 @@ def time_mlp(gen, card: str, reps: int = 20) -> dict:
 
         bf16_ms = time_ms(bf16_mlp, reps, flush)
         ops = 16 * m * c * c
+        run_ops = mlp_kernel_ops(m, c, 4 * c)
         n_bytes = 3 * m * c * 2 + 8 * c * c + 8 * m + 8 * 4 * c + 16 * c
         ops_ms = ops / INT8_OPS_PER_S * 1e3
+        run_ops_ms = run_ops / INT8_OPS_PER_S * 1e3
         bound_ms = max(ops_ms, n_bytes / HBM_BYTES_PER_S * 1e3)
         log(f"  int8_mlp {name} ({m}, {c}) bf16 + LN, per block: kernel "
-            f"{ms:.4f} ms ({ops / ms / 1e9:.0f} TOP/s), plain {plain_ms:.4f}"
-            f" ms, bound {bound_ms:.4f} ms (ops {ops_ms:.4f} ms at 1979 "
-            f"TOP/s; {n_bytes / 1e6:.1f} MB at 3.35 TB/s), bf16 block MLP "
-            f"{bf16_ms:.4f} ms; x {blocks} blocks [{card}]")
+            f"{ms:.4f} ms ({ops / ms / 1e9:.0f} TOP/s of the MLP's ops, "
+            f"{run_ops / ms / 1e9:.0f} executed), bound {bound_ms:.4f} ms "
+            f"(ops {ops_ms:.4f} ms at 1979 TOP/s; {n_bytes / 1e6:.1f} MB at "
+            f"3.35 TB/s), design's ops {run_ops_ms:.4f} ms "
+            f"({run_ops / ops:.1f}x), plain {plain_ms:.4f} ms, bf16 block "
+            f"MLP {bf16_ms:.4f} ms (int8 / bf16 {ms / bf16_ms:.2f}); x "
+            f"{blocks} blocks [{card}]")
         total["ms"] += blocks * ms
         total["plain_ms"] += blocks * plain_ms
         total["bound_ms"] += blocks * bound_ms
         total["ops_ms"] += blocks * ops_ms
+        total["run_ops_ms"] += blocks * run_ops_ms
         total["bf16_ms"] += blocks * bf16_ms
     log(f"  int8_mlp per forward (27 + 3 blocks): kernel {total['ms']:.4f} "
-        f"ms, bound {total['bound_ms']:.4f} ms, plain "
-        f"{total['plain_ms']:.4f} ms, bf16 block MLPs {total['bf16_ms']:.4f}"
-        f" ms [{card}]")
+        f"ms (mma.sync design: {MLP_MMA_SYNC_MS:.3f} ms, PERF.md), bound "
+        f"{total['bound_ms']:.4f} ms, design's ops {total['run_ops_ms']:.4f}"
+        f" ms, plain {total['plain_ms']:.4f} ms, bf16 block MLPs "
+        f"{total['bf16_ms']:.4f} ms; int8 / bf16 "
+        f"{total['ms'] / total['bf16_ms']:.3f} [{card}]")
     return total
 
 
@@ -1747,6 +1792,11 @@ def time_dispatch(gen, card: str, calls: int = 30, rounds: int = 7) -> dict:
         f"{(3 * add('dcnv3_win_fwd') + 30 * add('int8_mlp')) / 1e3:.4f} ms "
         f"(3 dcnv3_win_fwd + 30 int8_mlp); per train step "
         f"{3 * (add('dcnv3_fwd') + add('dcnv3_bwd')) / 1e3:.4f} ms [{card}]")
+    # the int8 MLP wrapper's own host time (shape checks, two tensor-map
+    # encodes, the shared-memory attribute, the launch) per fast request
+    log(f"  int8_mlp wrapper's host time per batch-{BATCH} fast request: "
+        f"30 x {res_us['int8_mlp'][1]:.2f} µs = "
+        f"{30 * res_us['int8_mlp'][1] / 1e3:.4f} ms [{card}]")
     return res_us
 
 

@@ -1,4 +1,6 @@
-// Fused W8A8 ConvNeXt MLP for Hopper, sm_90a.
+// Fused W8A8 ConvNeXt MLP for Hopper, sm_90a: wgmma from shared memory,
+// weights by TMA through an mbarrier ring, the requantization by
+// recomputing the first product.
 //
 // Replaces the TPU kernels givepose_tpu/ops/quant_matmul_pallas.py:
 // _mlp_kernel and _mlp_ln_kernel (both through _mlp_core), the whole MLP
@@ -29,24 +31,62 @@
 // batch 32 a stage-2 block (M 8192, C 512, H 2048) and a stage-3 block
 // (M 2048, C 1024, H 4096) each do 3.44e10, 17.4 us at the int8 tensor
 // core peak of 1979 TOP/s; bytes (y, res, out in bf16, both weights in
-// int8) are ~27 MB, 8.2 us, at stage 2.
+// int8) are ~27 MB, 8.2 us, at stage 2.  This design computes the first
+// product twice (below): 1.5x the operations, 26.1 us per block, when a
+// block covers all C output columns (stage 2), and 2.5x when the columns
+// are split in two (stage 3).
 //
-// Design: one block of 8 warps per BM rows (16 rows when C <= 512, else
-// 8).  The hard part is the requantization: hs needs the amax over the
-// whole H-wide hidden row before any of it is quantized.  This kernel
-// keeps the block's BM x H f32 hidden rows in shared memory (128 KB at
-// either width) rather than computing the first product twice: it costs
-// occupancy (one block per SM) but no extra operations, and keeps h out
-// of device memory, which is what the TPU kernel's fusion is for.  Both
-// products run on the int8 tensor cores through mma.sync m16n8k32 (BM 8
-// leaves half of each 16-row tile empty).  The A operand (quantized rows)
-// is read from shared memory with a row stride that makes the 16-byte
-// loads of a quarter-warp conflict-free; the B operand (weights) streams
-// from L2/HBM straight into registers, 64 contiguous bytes per weight row
-// per load.  Within each 64-wide K step the K order is permuted the same
-// way in A and B (each lane loads 16 contiguous bytes), which leaves the
-// exact int32 sum unchanged.  wgmma, TMA and a shared-memory weight ring
-// are later work.
+// The requantization needs the amax over the whole H-wide hidden row
+// before any of it is quantized, and 64 rows of f32 hidden values (the
+// least one wgmma M tile takes) are 512 KB at H = 2048.  So a block of 64
+// rows runs two passes over H in chunks of 128 columns:
+//   pass 1: h = act(dequant(yq @ w0q) + b0) per chunk, keeping only each
+//           row's running amax, which gives hs;
+//   pass 2: the same chunk again (the int32 sums are exact, so h is
+//           bitwise pass 1's), quantized with hs into a 64 x 128 int8 tile
+//           of shared memory that feeds the second product's accumulator
+//           at once: hq never needs the whole row.
+// Pass 1 takes the activation of a thread's largest value only, where
+// that gives the exact max (row_amax); the hidden values are computed as
+// in pass 2 either way.
+//
+// A block is 2 consumer warpgroups and a producer warpgroup (384 threads;
+// setmaxnreg gives the consumers 232 registers, the producer 40).  The
+// consumers split each chunk's 128 hidden columns (64 each, wgmma
+// m64n64k32 s8 from shared memory, 32 accumulator registers) and the
+// block's NB output columns of the second product (NB/2 each: 4 x
+// m64n64k32 and 128 accumulator registers at NB = 512; 2 at NB = 256; one
+// m64n32k32 at NB = 64).  NB is the largest of 512, 256, 64 that divides
+// C, and the grid is (M/64 row tiles, C/NB column blocks): 128 blocks at
+// stage 2, 64 at stage 3.  One producer thread streams every weight tile
+// the block needs, in the consumers' order, by
+// TMA (cp.async.bulk.tensor, 128 rows x 128 bytes, 128-byte swizzle, rows
+// beyond H or columns beyond C filled with zeros) into a ring of up to 8
+// stages of 16 KB, each with a full and an empty mbarrier; the consumers
+// keep one wgmma group in flight and release a stage when the group after
+// the one that read it is committed.  The quantized rows of y (64 x C,
+// written by the consumers in the same swizzle) stay in shared memory for
+// both passes; the hq tile is double-buffered, so a chunk's second
+// product runs while the next chunk's first product starts.  Every weight
+// tile is read from L2 once per pass for 64 rows: w0 twice and w1 once per
+// 64 rows, against both once per 16 (or 8) rows in the mma.sync design
+// this replaces.  Shared memory: ring 128 KB, yq 64 x C (32 KB at C 512,
+// 64 KB at C 1024), hq 16 KB, row scales and barriers 1 KB: 178 KB at
+// stage 2, 210 KB at stage 3, one block per SM.
+//
+// Left (on an H100: PERF.md, chip_smoke.py's breakdown_mlp): the two
+// passes' f32 epilogues (dequantization, GELU, amax, IEEE division) run
+// while the tensor cores wait, at 8 consumer warps per SM, and take about
+// half of the time; the weight stream through the ring about 40 %.
+// Overlapping the epilogue with the next chunk's products needs a deeper
+// ring than shared memory holds beside yq; a cluster of row tiles
+// multicasting each weight tile halves the L2 traffic, but a first trial
+// of it was slower (each stage waits for every block's consumers); stage
+// 3 recomputes the first product per column block (twice).
+
+#include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
+
+#include <algorithm>
 
 #include "int8_common.cuh"
 
@@ -54,270 +94,695 @@ namespace {
 
 using namespace int8k;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 64;           // rows per block: one wgmma M tile
+constexpr int kChunk = 128;         // hidden columns per chunk
+constexpr int kSlice = 128;         // K bytes per weight tile (swizzle)
+constexpr int kTileBytes = 128 * kSlice;
+constexpr int kConsumers = 256;     // two warpgroups
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+constexpr int kMaxStages = 8;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-// row stride (bytes) of an int8 A operand of K columns: a multiple of 64
-// that is 64 mod 128, so the 16-byte loads of rows g and g+1 in one
-// quarter-warp fall on disjoint banks
-__host__ __device__ __forceinline__ int a_stride(int k) {
-  return k % 128 == 0 ? k + 64 : k;
+// ---- shared-memory addresses, mbarriers, TMA ----------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// acc[j][.] += A (BM x K, shared, stride as) @ B^T for the 64 output
-// columns n0..n0+63, B (N x K) row-major in global memory.  Lane (g, t)
-// holds rows g and g+8 and output columns n0 + 8j + 2t, +1 (mma.sync's C
-// fragment); per 64-wide K step it loads 16 contiguous bytes of each of
-// its A rows and of its B row, and feeds bytes 0-7 to one mma and bytes
-// 8-15 to the next (the same K permutation in A and B).
-template <int BM>
-__device__ __forceinline__ void gemm_chunk(const int8_t* a, int as,
-                                           const int8_t* __restrict__ b,
-                                           int k, int n0, int lane,
-                                           int acc[8][4]) {
-  const int g = lane >> 2, t = lane & 3;
+// byte offset of (row, k) in a tile of 128-byte rows under the 128-byte
+// swizzle that TMA writes and wgmma reads: the 16-byte chunk index xor
+// the row within its group of 8 (the tile 1024-byte aligned)
+__device__ __forceinline__ int swz(int row, int k) {
+  return row * 128 + ((((k >> 4) ^ row) & 7) << 4) + (k & 15);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// generic-proxy writes to shared memory (yq, hq) made visible to wgmma
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the consumer warpgroups, not the producer warp
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// ---- wgmma -----------------------------------------------------------
+
+// K-major operand in 128-byte swizzled rows: start >> 4, leading offset
+// 16 B (unused by the swizzled K-major layout), stride 1024 B between
+// groups of 8 rows, layout type 1 (128-byte swizzle)
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accesses of accumulator registers across
+// the asynchronous wgmma that writes them
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int v = 0; v < 4; ++v) acc[j][v] = 0;
-  }
-  const int8_t* arow0 = a + g * as + 16 * t;
-  const int8_t* arow1 = a + (g + 8) * as + 16 * t;
-  const int8_t* brow = b + static_cast<long long>(n0 + g) * k + 16 * t;
-#pragma unroll 2
-  for (int k0 = 0; k0 < k; k0 += 64) {
-    const uint4 q = *reinterpret_cast<const uint4*>(arow0 + k0);
-    uint4 r = make_uint4(0u, 0u, 0u, 0u);
-    if (BM == 16) r = *reinterpret_cast<const uint4*>(arow1 + k0);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const uint4 w = __ldg(reinterpret_cast<const uint4*>(
-          brow + static_cast<long long>(8 * j) * k + k0));
-      mma_s8(acc[j], q.x, r.x, q.y, r.y, w.x, w.y);
-      mma_s8(acc[j], q.z, r.z, q.w, r.w, w.z, w.w);
-    }
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 x 64, s32) += A (64 x 32 int8) @ B (64 x 32 int8)^T
+__device__ __forceinline__ void wgmma_n64(int (&d)[32], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 32, s32) += A (64 x 32 int8) @ B (32 x 32 int8)^T
+__device__ __forceinline__ void wgmma_n32(int (&d)[16], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int N, int R>
+__device__ __forceinline__ void wgmma_n(int (&d)[R], uint64_t a, uint64_t b) {
+  if constexpr (N == 64) {
+    wgmma_n64(d, a, b);
+  } else {
+    wgmma_n32(d, a, b);
   }
 }
 
-template <typename T, int BM, int ACT, bool LN>
+// ---- the consumers' side of the ring ------------------------------------
+
+// Tiles arrive in the order the producer issues them.  A consumer keeps
+// one wgmma group in flight: after committing the group that reads a
+// tile it waits for the group before, and releases that one's stage.
+struct Ring {
+  uint32_t tiles;   // shared address of stage 0
+  uint32_t full;    // shared address of full[0]; empty[] follows
+  int stages;
+  int lane;
+  int it = 0;       // tiles acquired
+  int pend = -1;    // stage read by the group still in flight
+
+  __device__ __forceinline__ uint32_t acquire() {
+    const int s = it % stages;
+    mbar_wait(full + 8 * s, (it / stages) & 1);
+    return tiles + s * kTileBytes;
+  }
+  __device__ __forceinline__ void release() {
+    if (pend >= 0 && lane == 0) mbar_arrive(full + 8 * (stages + pend));
+    pend = -1;
+  }
+  // after the group that read the tile of acquire() was committed
+  __device__ __forceinline__ void retire() {
+    wgmma_wait<1>();
+    release();
+    pend = it % stages;
+    ++it;
+  }
+  __device__ __forceinline__ void drain() {
+    wgmma_wait<0>();
+    release();
+  }
+};
+
+// the hidden value before its activation, f32 steps in _mlp_core's order
+__device__ __forceinline__ float pre_act(int v, float xs, float s, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v), xs), s), b);
+}
+
+// GELU's largest |value| over x < 0 is below 0.17 (at x = -0.75), and for
+// x >= 0 its slope is at least 1/2, in either form
+constexpr float kActFloor = 0.5f;            // GELU(0.5) > 0.34 > 0.17
+constexpr float kNear = 1.0f - 1.0f / 4096;
+
+// The largest and second largest of a row's values (duplicates count).
+__device__ __forceinline__ void track(float& m1, float& m2, float v) {
+  m2 = fmaxf(m2, fminf(m1, v));
+  m1 = fmaxf(m1, v);
+}
+
+// max |act(x)| over one row's N values in this thread's fragment, given
+// their largest m1 and second largest m2 (ACT 0: m1 is the largest |x|).
+// For GELU it is act(m1) whenever m1 >= 1/2 and m2 <= m1 (1 - 2^-12):
+// every other x then lies below act(m1) by at least m1 2^-13 (slope 1/2),
+// or below 0.17 if negative, far beyond the few-ulp error of the f32 act,
+// so one act gives the exact max.  Otherwise all N take their act (x(i)
+// recomputes the i-th value), in a loop over a local array that keeps the
+// rare path's code small.
+template <int ACT, int N, typename F>
+__device__ __forceinline__ float row_amax(float m1, float m2, F x) {
+  if constexpr (ACT == 0) {
+    return m1;
+  } else {
+    if (m1 >= kActFloor && m2 <= m1 * kNear) return act_fn<ACT>(m1);
+    float v[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = x(i);
+    float am = 0.0f;
+#pragma unroll 1
+    for (int i = 0; i < N; ++i) am = fmaxf(am, fabsf(act_fn<ACT>(v[i])));
+    return am;
+  }
+}
+
+// element i of a row-major bf16 or f32 matrix, in f32
+__device__ __forceinline__ float load_f32(const void* p, long long i,
+                                          bool bf16) {
+  return bf16 ? to_f32(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ float prologue(const void* y, bool bf16,
+                                          long long r, int c, int col,
+                                          float mu, float rsig,
+                                          const float* ln_g,
+                                          const float* ln_b, bool ln) {
+  float v = load_f32(y, r * c + col, bf16);
+  if (ln) {
+    v = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mu), rsig), ln_g[col]),
+                  ln_b[col]);
+  }
+  return v;
+}
+
+// y, res, out in bf16 (bf16 = 1) or f32; the LN prologue when ln = 1
+template <int ACT, int NB>
 __global__ void __launch_bounds__(kThreads, 1)
-int8_mlp_kernel(const T* __restrict__ y, const T* __restrict__ res,
-                T* __restrict__ out, const int8_t* __restrict__ w0t,
-                const float* __restrict__ s0, const float* __restrict__ b0,
-                const int8_t* __restrict__ w1t,
-                const float* __restrict__ s1, const float* __restrict__ b1,
-                const float* __restrict__ mu, const float* __restrict__ rsig,
+int8_mlp_kernel(const __grid_constant__ CUtensorMap w0map,
+                const __grid_constant__ CUtensorMap w1map,
+                const void* __restrict__ y, const void* __restrict__ res,
+                void* __restrict__ out, const float* __restrict__ s0,
+                const float* __restrict__ b0, const float* __restrict__ s1,
+                const float* __restrict__ b1, const float* __restrict__ mu,
+                const float* __restrict__ rsig,
                 const float* __restrict__ ln_g,
-                const float* __restrict__ ln_b, int m, int c, int hd) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int hw = hd > c ? hd : c;               // f32 row width of hbuf
-  float* hbuf = reinterpret_cast<float*>(smem_raw);            // BM x hw
-  int8_t* yq = reinterpret_cast<int8_t*>(hbuf + BM * hw);     // BM x a_stride(c)
-  int8_t* hq = yq + BM * a_stride(c);                          // BM x a_stride(hd)
-  float* xs = reinterpret_cast<float*>(hq + BM * a_stride(hd));   // BM
-  float* hs = xs + BM;                                         // BM
+                const float* __restrict__ ln_b, int m, int c, int hd,
+                int stages, int bf16, int ln) {
+  constexpr int kWG = kConsumers / 128;          // consumer warpgroups
+  constexpr int kNT = NB >= 128 ? NB / 128 : 1;  // w1 tiles per chunk
+  constexpr int kTR = NB >= 128 ? 128 : NB;      // rows of a w1 tile
+  constexpr int kCols = NB / kWG;                // output columns per wg
+  constexpr int kN2 = kCols >= 64 ? 64 : kCols;  // n of the 2nd product
+  constexpr int ACC_B = kCols / kN2;
+  constexpr int ACC_R = kN2 / 2;
+  constexpr int kH = kChunk / kWG;               // chunk columns per wg
+  static_assert(NB == 64 || NB == 256 || NB == 512, "NB");
+  constexpr int ACC1 = kH / 2;                   // first-product registers
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long row0 = static_cast<long long>(blockIdx.x) * BM;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int nk = (c + kSlice - 1) / kSlice;
+  const int nj = (hd + kChunk - 1) / kChunk;
+  unsigned char* tiles = base;
+  int8_t* yq = reinterpret_cast<int8_t*>(tiles + stages * kTileBytes);
+  int8_t* hq = yq + nk * kRows * kSlice;                  // 2 buffers
+  float* xs_s = reinterpret_cast<float*>(hq + 2 * kRows * kChunk);
+  float* am_s = xs_s + kRows;                             // kWG x kRows
+  uint64_t* bars = reinterpret_cast<uint64_t*>(am_s + kWG * kRows);
+  // bars[0, stages): full; bars[stages, 2 stages): empty
 
-  // 1. prologue and per-row quantization of y (padding rows are zeros)
-  for (int i = warp; i < BM; i += kWarps) {
+  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
+  const int n0 = blockIdx.y * NB;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(bars + s), 1);
+      mbar_init(smem_u32(bars + stages + s), kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread streams every weight tile in the consumers'
+    // order: pass 1 the w0 tiles of each chunk, pass 2 those again, each
+    // chunk followed by its w1 tiles
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != kConsumers) return;
+    int it = 0;
+    auto push = [&](const CUtensorMap* map, int c0, int c1, int rows) {
+      const int s = it % stages;
+      const uint32_t full = smem_u32(bars + s);
+      mbar_wait(smem_u32(bars + stages + s), ((it / stages) & 1) ^ 1);
+      mbar_expect_tx(full, rows * kSlice);
+      tma_load(smem_u32(tiles + s * kTileBytes), map, c0, c1, full);
+      ++it;
+    };
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int j = 0; j < nj; ++j) {
+        for (int k = 0; k < nk; ++k) push(&w0map, k * kSlice, j * kChunk, 128);
+        if (pass == 1) {
+          for (int t = 0; t < kNT; ++t) {
+            push(&w1map, j * kChunk, n0 + t * kTR, kTR);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;                 // consumer warpgroup
+  const int warp = tid >> 5, lane = tid & 31;
+  const int q = lane & 3;
+  const int ra = 16 * (warp & 3) + (lane >> 2);   // this thread's two rows
+  const int rb = ra + 8;                          // of every fragment
+
+  // 1. prologue and per-row quantization of y into yq (128-byte slices of
+  // K, swizzled; padding rows and the columns C..nk*128 are zeros)
+  for (int i = warp; i < kRows; i += kConsumers / 32) {
     const long long r = row0 + i;
-    float* hrow = hbuf + i * hw;
-    int8_t* qrow = yq + i * a_stride(c);
-    if (r >= m) {
-      for (int col = lane; col < c; col += 32) qrow[col] = 0;
-      if (lane == 0) xs[i] = 1.0f;
-      continue;
-    }
+    const bool live = r < m;
+    const float mu_r = ln && live ? mu[r] : 0.0f;
+    const float rs_r = ln && live ? rsig[r] : 0.0f;
     float amax = 0.0f;
-    for (int col = lane; col < c; col += 32) {
-      float v = to_f32(y[r * c + col]);
-      if (LN) {
-        v = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mu[r]), rsig[r]),
-                                ln_g[col]),
-                      ln_b[col]);
-      }
-      hrow[col] = v;
-      amax = fmaxf(amax, fabsf(v));
-    }
-    const float scale = __fmul_rn(fmaxf(warp_max(amax), eps8()), inv127());
-    for (int col = lane; col < c; col += 32) {
-      qrow[col] = quantize(hrow[col], scale);
-    }
-    if (lane == 0) xs[i] = scale;
-  }
-  __syncthreads();
-
-  // 2. h = act(dequant(yq @ w0q) + b0) into hbuf, 64 columns per warp task
-  for (int n0 = warp * 64; n0 < hd; n0 += kWarps * 64) {
-    int acc[8][4];
-    gemm_chunk<BM>(yq, a_stride(c), w0t, c, n0, lane, acc);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int i = g + (v >= 2 ? 8 : 0);
-        if (i >= BM) continue;
-        const int col = n0 + 8 * j + 2 * t + (v & 1);
-        const float h = __fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[j][v]), xs[i]), s0[col]),
-            b0[col]);
-        hbuf[i * hw + col] = act_fn<ACT>(h);
+    if (live) {
+      for (int col = lane; col < c; col += 32) {
+        amax = fmaxf(amax, fabsf(prologue(y, bf16, r, c, col, mu_r, rs_r,
+                                          ln_g, ln_b, ln)));
       }
     }
+    const float scale = live ? row_scale(warp_max(amax)) : 1.0f;
+    for (int col = 4 * lane; col < nk * kSlice; col += 128) {
+      uint32_t word = 0;
+      if (live && col < c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = prologue(y, bf16, r, c, col + e, mu_r, rs_r, ln_g,
+                                   ln_b, ln);
+          word |= static_cast<uint32_t>(static_cast<uint8_t>(
+                      quantize(v, scale)))
+                  << (8 * e);
+        }
+      }
+      *reinterpret_cast<uint32_t*>(yq + (col / kSlice) * kRows * kSlice +
+                                   swz(i, col % kSlice)) = word;
+    }
+    if (lane == 0) xs_s[i] = scale;
   }
-  __syncthreads();
+  fence_async_smem();
+  consumer_sync();
+  const float xa = xs_s[ra], xb = xs_s[rb];
 
-  // 3. per-row requantization of h over all H columns
-  for (int i = warp; i < BM; i += kWarps) {
-    const float* hrow = hbuf + i * hw;
-    int8_t* qrow = hq + i * a_stride(hd);
-    float amax = 0.0f;
-    for (int col = lane; col < hd; col += 32) {
-      amax = fmaxf(amax, fabsf(hrow[col]));
+  Ring ring;
+  ring.tiles = smem_u32(tiles);
+  ring.full = smem_u32(bars);
+  ring.stages = stages;
+  ring.lane = lane;
+  const uint32_t yq_a = smem_u32(yq);
+
+  // acc (this warpgroup's 64 x 32 of chunk j) = yq (64 x C) @ w0 tile^T
+  auto first = [&](int (&acc)[ACC1]) {
+#pragma unroll
+    for (int i = 0; i < ACC1; ++i) acc[i] = 0;
+    for (int k = 0; k < nk; ++k) {
+      const uint32_t a = yq_a + k * kRows * kSlice;
+      const uint32_t b = ring.acquire() + wg * kH * kSlice;
+      wgmma_fence();
+      fence_acc(acc);
+#pragma unroll
+      for (int kk = 0; kk < kSlice; kk += 32) {
+        wgmma_n<kH>(acc, desc(a + kk), desc(b + kk));
+      }
+      wgmma_commit();
+      ring.retire();
     }
-    const float scale = __fmul_rn(fmaxf(warp_max(amax), eps8()), inv127());
-    for (int col = lane; col < hd; col += 32) {
-      qrow[col] = quantize(hrow[col], scale);
+    ring.drain();
+    fence_acc(acc);
+  };
+
+  // 2. pass 1: each row's amax of h over all H columns
+  float am_a = 0.0f, am_b = 0.0f;
+  for (int j = 0; j < nj; ++j) {
+    int acc[ACC1];
+    first(acc);
+    const int cb = j * kChunk + wg * kH;
+    if (cb < hd) {
+      float m1a = -INFINITY, m2a = -INFINITY;
+      float m1b = -INFINITY, m2b = -INFINITY;
+#pragma unroll
+      for (int b = 0; b < kH / 8; ++b) {
+        const int col = cb + 8 * b + 2 * q;
+        const float2 sc = *reinterpret_cast<const float2*>(s0 + col);
+        const float2 bb = *reinterpret_cast<const float2*>(b0 + col);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float va = pre_act(acc[4 * b + e], xa, e ? sc.y : sc.x,
+                                   e ? bb.y : bb.x);
+          const float vb = pre_act(acc[4 * b + 2 + e], xb, e ? sc.y : sc.x,
+                                   e ? bb.y : bb.x);
+          if constexpr (ACT == 0) {
+            m1a = fmaxf(m1a, fabsf(va));
+            m1b = fmaxf(m1b, fabsf(vb));
+          } else {
+            track(m1a, m2a, va);
+            track(m1b, m2b, vb);
+          }
+        }
+      }
+      auto x_a = [&](int i) {
+        const int col = cb + 8 * (i >> 1) + 2 * q + (i & 1);
+        return pre_act(acc[4 * (i >> 1) + (i & 1)], xa, s0[col], b0[col]);
+      };
+      auto x_b = [&](int i) {
+        const int col = cb + 8 * (i >> 1) + 2 * q + (i & 1);
+        return pre_act(acc[4 * (i >> 1) + 2 + (i & 1)], xb, s0[col],
+                       b0[col]);
+      };
+      am_a = fmaxf(am_a, row_amax<ACT, kH / 4>(m1a, m2a, x_a));
+      am_b = fmaxf(am_b, row_amax<ACT, kH / 4>(m1b, m2b, x_b));
     }
-    if (lane == 0) hs[i] = scale;
   }
-  __syncthreads();
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    am_a = fmaxf(am_a, __shfl_xor_sync(0xffffffffu, am_a, o));
+    am_b = fmaxf(am_b, __shfl_xor_sync(0xffffffffu, am_b, o));
+  }
+  if (q == 0) {
+    am_s[wg * kRows + ra] = am_a;
+    am_s[wg * kRows + rb] = am_b;
+  }
+  consumer_sync();
+  float ha_max = am_s[ra], hb_max = am_s[rb];
+#pragma unroll
+  for (int w = 1; w < kWG; ++w) {
+    ha_max = fmaxf(ha_max, am_s[w * kRows + ra]);
+    hb_max = fmaxf(hb_max, am_s[w * kRows + rb]);
+  }
+  const float ha = row_scale(ha_max), hb = row_scale(hb_max);
+
+  // 3. pass 2: h again, quantized with hs into the chunk's hq tile, and
+  // hq @ w1 tile^T into this warpgroup's kCols output columns (rows
+  // wg * kCols .. of the block's w1 tiles)
+  int acc2[ACC_B][ACC_R];
+#pragma unroll
+  for (int a = 0; a < ACC_B; ++a) {
+#pragma unroll
+    for (int i = 0; i < ACC_R; ++i) acc2[a][i] = 0;
+  }
+  for (int j = 0; j < nj; ++j) {
+    int acc[ACC1];
+    first(acc);
+    int8_t* hbuf = hq + (j & 1) * kRows * kChunk;
+    const int cb = j * kChunk + wg * kH;
+#pragma unroll
+    for (int b = 0; b < kH / 8; ++b) {
+      const int lc = wg * kH + 8 * b + 2 * q;
+      uint16_t pa = 0, pb = 0;
+      if (cb < hd) {
+        const float2 sc = *reinterpret_cast<const float2*>(s0 + cb + 8 * b +
+                                                           2 * q);
+        const float2 bb = *reinterpret_cast<const float2*>(b0 + cb + 8 * b +
+                                                           2 * q);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float se = e ? sc.y : sc.x, be = e ? bb.y : bb.x;
+          pa |= static_cast<uint16_t>(static_cast<uint8_t>(quantize(
+                    act_fn<ACT>(pre_act(acc[4 * b + e], xa, se, be)), ha)))
+                << (8 * e);
+          pb |= static_cast<uint16_t>(static_cast<uint8_t>(quantize(
+                    act_fn<ACT>(pre_act(acc[4 * b + 2 + e], xb, se, be)),
+                    hb)))
+                << (8 * e);
+        }
+      }
+      *reinterpret_cast<uint16_t*>(hbuf + swz(ra, lc)) = pa;
+      *reinterpret_cast<uint16_t*>(hbuf + swz(rb, lc)) = pb;
+    }
+    fence_async_smem();
+    consumer_sync();
+    const uint32_t h_a = smem_u32(hbuf);
+#pragma unroll
+    for (int t = 0; t < kNT; ++t) {
+      const uint32_t tile = ring.acquire();
+      wgmma_fence();
+#pragma unroll
+      for (int a = 0; a < ACC_B; ++a) {
+        const int row = wg * kCols + a * kN2;   // of the block's w1 rows
+        if (row / kTR == t) {
+          fence_acc(acc2[a]);
+          const uint32_t b = tile + (row % kTR) * kSlice;
+#pragma unroll
+          for (int kk = 0; kk < kChunk; kk += 32) {
+            wgmma_n<kN2>(acc2[a], desc(h_a + kk), desc(b + kk));
+          }
+        }
+      }
+      wgmma_commit();
+      ring.retire();
+    }
+  }
+  ring.drain();
+#pragma unroll
+  for (int a = 0; a < ACC_B; ++a) fence_acc(acc2[a]);
 
   // 4. out = res + dequant(hq @ w1q) + b1
-  for (int n0 = warp * 64; n0 < c; n0 += kWarps * 64) {
-    int acc[8][4];
-    gemm_chunk<BM>(hq, a_stride(hd), w1t, hd, n0, lane, acc);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+  for (int a = 0; a < ACC_B; ++a) {
 #pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int i = g + (v >= 2 ? 8 : 0);
-        const long long r = row0 + i;
-        if (i >= BM || r >= m) continue;
-        const int col = n0 + 8 * j + 2 * t + (v & 1);
-        const float o = __fadd_rn(
-            __fadd_rn(to_f32(res[r * c + col]),
-                      __fmul_rn(__fmul_rn(__int2float_rn(acc[j][v]), hs[i]),
-                                s1[col])),
-            b1[col]);
-        out[r * c + col] = from_f32<T>(o);
+    for (int b = 0; b < ACC_R / 4; ++b) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + wg * kCols + kN2 * a + 8 * b + 2 * q + e;
+        const float s = s1[col], bb = b1[col];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long r = row0 + (h ? rb : ra);
+          if (r >= m) continue;
+          const float acc_f = __int2float_rn(acc2[a][4 * b + 2 * h + e]);
+          const float o = __fadd_rn(
+              __fadd_rn(load_f32(res, r * c + col, bf16),
+                        __fmul_rn(__fmul_rn(acc_f, h ? hb : ha), s)),
+              bb);
+          if (bf16) {
+            static_cast<__nv_bfloat16*>(out)[r * c + col] =
+                from_f32<__nv_bfloat16>(o);
+          } else {
+            static_cast<float*>(out)[r * c + col] = o;
+          }
+        }
       }
     }
   }
 }
 
-size_t smem_bytes(int bm, int c, int hd) {
-  const int hw = hd > c ? hd : c;
-  return static_cast<size_t>(bm) * hw * sizeof(float) +
-         static_cast<size_t>(bm) * (a_stride(c) + a_stride(hd)) +
-         2 * bm * sizeof(float);
+// ---- host side --------------------------------------------------------
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so that the
+// library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
 }
 
-template <typename T, int BM, int ACT, bool LN>
-int launch(const void* y, const void* res, void* out, const void* w0t,
-           const void* s0, const void* b0, const void* w1t, const void* s1,
-           const void* b1, const void* mu, const void* rsig,
-           const void* ln_g, const void* ln_b, int m, int c, int hd,
-           cudaStream_t stream) {
-  auto kernel = int8_mlp_kernel<T, BM, ACT, LN>;
-  const size_t bytes = smem_bytes(BM, c, hd);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
+// a row-major int8 matrix (rows x cols) read in boxes of box_rows x 128
+// bytes, 128-byte swizzle, zeros beyond its edges
+bool weight_map(CUtensorMap* map, const void* w, int rows, int cols,
+                int box_rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kSlice),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// output columns per block: the largest of 512, 256, 64 that divides C
+int block_cols(int c) {
+  if (c % 512 == 0) return 512;
+  if (c % 256 == 0) return 256;
+  return 64;
+}
+
+// shared memory besides the ring, and the 1 KB of alignment slack
+size_t fixed_smem(int c) {
+  const int nk = (c + kSlice - 1) / kSlice;
+  return static_cast<size_t>(nk) * kRows * kSlice + 2 * kRows * kChunk +
+         (1 + kConsumers / 128) * kRows * sizeof(float) +
+         2 * kMaxStages * sizeof(uint64_t) +
+         1024;
+}
+
+struct Args {
+  const void *y, *res;
+  void* out;
+  const void *w0t, *s0, *b0, *w1t, *s1, *b1, *mu, *rsig, *ln_g, *ln_b;
+  int m, c, hd, bf16, has_ln;
+  cudaStream_t stream;
+};
+
+template <int ACT, int NB>
+int launch(const Args& a) {
+  const size_t fixed = fixed_smem(a.c);
+  if (fixed + 3 * kTileBytes > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  const unsigned blocks = static_cast<unsigned>((m + BM - 1) / BM);
-  kernel<<<blocks, kThreads, bytes, stream>>>(
-      static_cast<const T*>(y), static_cast<const T*>(res),
-      static_cast<T*>(out), static_cast<const int8_t*>(w0t),
-      static_cast<const float*>(s0), static_cast<const float*>(b0),
-      static_cast<const int8_t*>(w1t), static_cast<const float*>(s1),
-      static_cast<const float*>(b1), static_cast<const float*>(mu),
-      static_cast<const float*>(rsig), static_cast<const float*>(ln_g),
-      static_cast<const float*>(ln_b), m, c, hd);
+  const int stages = static_cast<int>(
+      std::min<size_t>(kMaxStages, (kMaxSmem - fixed) / kTileBytes));
+  const size_t bytes = fixed + static_cast<size_t>(stages) * kTileBytes;
+  CUtensorMap w0map, w1map;
+  if (!weight_map(&w0map, a.w0t, a.hd, a.c, 128) ||
+      !weight_map(&w1map, a.w1t, a.c, a.hd, NB >= 128 ? 128 : NB)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = int8_mlp_kernel<ACT, NB>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>((a.m + kRows - 1) / kRows),
+                  static_cast<unsigned>(a.c / NB));
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
+      w0map, w1map, a.y, a.res, a.out, static_cast<const float*>(a.s0),
+      static_cast<const float*>(a.b0), static_cast<const float*>(a.s1),
+      static_cast<const float*>(a.b1), static_cast<const float*>(a.mu),
+      static_cast<const float*>(a.rsig), static_cast<const float*>(a.ln_g),
+      static_cast<const float*>(a.ln_b), a.m, a.c, a.hd, stages, a.bf16, a.has_ln);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int BM, int ACT>
-int with_ln(int has_ln, const void* y, const void* res, void* out,
-            const void* w0t, const void* s0, const void* b0,
-            const void* w1t, const void* s1, const void* b1, const void* mu,
-            const void* rsig, const void* ln_g, const void* ln_b, int m,
-            int c, int hd, cudaStream_t s) {
-  return has_ln ? launch<T, BM, ACT, true>(y, res, out, w0t, s0, b0, w1t, s1,
-                                           b1, mu, rsig, ln_g, ln_b, m, c,
-                                           hd, s)
-                : launch<T, BM, ACT, false>(y, res, out, w0t, s0, b0, w1t,
-                                            s1, b1, mu, rsig, ln_g, ln_b, m,
-                                            c, hd, s);
-}
-
-template <typename T, int BM>
-int with_act(int act, int has_ln, const void* y, const void* res, void* out,
-             const void* w0t, const void* s0, const void* b0,
-             const void* w1t, const void* s1, const void* b1,
-             const void* mu, const void* rsig, const void* ln_g,
-             const void* ln_b, int m, int c, int hd, cudaStream_t s) {
-  switch (act) {
-    case 0:
-      return with_ln<T, BM, 0>(has_ln, y, res, out, w0t, s0, b0, w1t, s1, b1,
-                               mu, rsig, ln_g, ln_b, m, c, hd, s);
-    case 1:
-      return with_ln<T, BM, 1>(has_ln, y, res, out, w0t, s0, b0, w1t, s1, b1,
-                               mu, rsig, ln_g, ln_b, m, c, hd, s);
-    case 2:
-      return with_ln<T, BM, 2>(has_ln, y, res, out, w0t, s0, b0, w1t, s1, b1,
-                               mu, rsig, ln_g, ln_b, m, c, hd, s);
+template <int ACT>
+int with_cols(const Args& a) {
+  switch (block_cols(a.c)) {
+    case 512:
+      return launch<ACT, 512>(a);
+    case 256:
+      return launch<ACT, 256>(a);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch<ACT, 64>(a);
   }
-}
-
-template <typename T>
-int with_rows(int act, int has_ln, const void* y, const void* res, void* out,
-              const void* w0t, const void* s0, const void* b0,
-              const void* w1t, const void* s1, const void* b1,
-              const void* mu, const void* rsig, const void* ln_g,
-              const void* ln_b, int m, int c, int hd, cudaStream_t s) {
-  if (smem_bytes(16, c, hd) <= kMaxSmem) {
-    return with_act<T, 16>(act, has_ln, y, res, out, w0t, s0, b0, w1t, s1,
-                           b1, mu, rsig, ln_g, ln_b, m, c, hd, s);
-  }
-  if (smem_bytes(8, c, hd) <= kMaxSmem) {
-    return with_act<T, 8>(act, has_ln, y, res, out, w0t, s0, b0, w1t, s1, b1,
-                          mu, rsig, ln_g, ln_b, m, c, hd, s);
-  }
-  return static_cast<int>(cudaErrorInvalidConfiguration);
 }
 
 }  // namespace
 
-// Plain-C entry point, loaded with ctypes.  y_bf16 selects T (1: bf16,
-// 0: f32); act 0 none, 1 tanh GELU, 2 erf GELU; has_ln selects the LN
-// prologue (mu, rsig, ln_g, ln_b are read only then).  Returns a CUDA
-// error code: that of the launch (cudaGetLastError), of raising the
-// shared-memory limit, or cudaErrorInvalidValue /
-// cudaErrorInvalidConfiguration for shapes the kernel does not take.
+// Plain-C entry point, loaded with ctypes.  y_bf16 selects the type of y,
+// res and out (1: bf16, 0: f32); act 0 none, 1 tanh GELU, 2 erf GELU;
+// has_ln selects the LN prologue (mu, rsig, ln_g, ln_b are read only
+// then).  Returns a CUDA error code: that of the launch
+// (cudaGetLastError), of raising the shared-memory limit, or
+// cudaErrorInvalidValue / cudaErrorInvalidConfiguration for shapes the
+// kernel does not take (or when the driver has no
+// cuTensorMapEncodeTiled).
 extern "C" int int8_mlp(const void* y, const void* res, void* out,
                         const void* w0t, const void* s0, const void* b0,
                         const void* w1t, const void* s1, const void* b1,
                         const void* mu, const void* rsig, const void* ln_g,
                         const void* ln_b, int m, int c, int hd, int y_bf16,
                         int act, int has_ln, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{y,    res,  out,  w0t, s0, b0, w1t,    s1,
+               b1,   mu,   rsig, ln_g, ln_b, m, c,  hd,
+               y_bf16 != 0, has_ln != 0, static_cast<cudaStream_t>(stream)};
   if (m == 0) return static_cast<int>(cudaGetLastError());
   if (c <= 0 || hd <= 0 || c % 64 || hd % 64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return y_bf16
-             ? with_rows<__nv_bfloat16>(act, has_ln, y, res, out, w0t, s0, b0,
-                                        w1t, s1, b1, mu, rsig, ln_g, ln_b, m,
-                                        c, hd, s)
-             : with_rows<float>(act, has_ln, y, res, out, w0t, s0, b0, w1t,
-                                s1, b1, mu, rsig, ln_g, ln_b, m, c, hd, s);
+  switch (act) {
+    case 0:
+      return with_cols<0>(a);
+    case 1:
+      return with_cols<1>(a);
+    case 2:
+      return with_cols<2>(a);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

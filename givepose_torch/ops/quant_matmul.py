@@ -258,6 +258,11 @@ def mlp_int8_cuda(y, residual, w0t, s0, b0, w1t, s1, b1, act="gelu_tanh",
                        zip(("mu", "rsig", "ln_g", "ln_b"), ln_args,
                            ((m,), (m,), (c,), (c,)))})
     _check(expect, y.device)
+    # the kernel reads s0 and b0 in pairs (8-byte loads), and w0t and w1t
+    # through TMA tensor maps, whose base address must be 16-byte aligned
+    s0, b0 = (t if t.data_ptr() % 8 == 0 else t.clone() for t in (s0, b0))
+    w0t, w1t = (t if t.data_ptr() % 16 == 0 else t.clone()
+                for t in (w0t, w1t))
     out = torch.empty_like(y)
     ptr = [0 if t is None else t.data_ptr() for t in ln_args]
     fn = _kernel(SOURCE, "int8_mlp", [ctypes.c_void_p] * 13

@@ -229,3 +229,174 @@ def test_train_step_refuses_quant():
     with pytest.raises(ValueError, match="int8"):
         step(state, batch, torch.Generator().manual_seed(0))
     assert state.step == 0
+
+
+# csrc/int8_mlp.cu's shortcut for the row amax of GELU(x) over the values
+# of one thread's fragment: GELU(m1) when the largest value m1 is at least
+# KERNEL_ACT_FLOOR and the second largest at most m1 * KERNEL_NEAR
+KERNEL_ACT_FLOOR = 0.5
+KERNEL_NEAR = 1.0 - 1.0 / 4096
+
+
+def fragment_amax(pre, h, act):
+    """Per row, max |h| over a chunk as the kernel takes it: each thread
+    holds 16 values of a row (columns 64 w + 8 b + 2 q + e of the chunk
+    for its warpgroup w and lane quad q, b < 8, e < 2); for GELU a thread
+    whose largest pre-activation m1 >= 1/2 has a second largest at most
+    m1 (1 - 2^-12) takes GELU at m1 alone, any other takes all 16.  pre and
+    h = act(pre) are (rows, width), width a multiple of 64."""
+    rows, width = pre.shape
+
+    def frag(t):
+        return (t.reshape(rows, width // 64, 8, 4, 2).permute(0, 1, 3, 2, 4)
+                .reshape(rows, -1, 16))
+
+    p, a = frag(pre), frag(h)
+    if act == "none":
+        return p.abs().amax(-1).amax(-1, keepdim=True)
+    top = p.topk(2, dim=-1)
+    m1, m2 = top.values[..., 0], top.values[..., 1]
+    near = torch.tensor(KERNEL_NEAR, dtype=torch.float32)
+    fast = (m1 >= KERNEL_ACT_FLOOR) & (m2 <= m1 * near)
+    at_m1 = a.gather(-1, top.indices[..., :1])[..., 0]
+    per_thread = torch.where(fast, at_m1, a.abs().amax(-1))
+    return per_thread.amax(-1, keepdim=True)
+
+
+def two_pass_mlp(y, residual, w0q, s0, b0, w1q, s1, b1, act, ln,
+                 tile_rows, chunk_cols, nb):
+    """The int8 MLP as the Hopper kernel decomposes it, in torch: per tile
+    of ``tile_rows`` rows and block of ``nb`` output columns, pass 1 takes
+    each ``chunk_cols``-wide chunk of h (a multiple of 64) and keeps only
+    the rows' amax (``fragment_amax``); pass 2 computes every chunk again,
+    quantizes it with hs, and adds its int32 partial product into the
+    block's accumulator."""
+    from givepose_torch.ops.quant_matmul import _quantize_rows, apply_act
+
+    m, c = y.shape
+    hd = w0q.shape[1]
+    out = torch.empty(m, c)
+    for r0 in range(0, m, tile_rows):
+        rows = slice(r0, min(r0 + tile_rows, m))
+        yf = y[rows].float()
+        if ln is not None:
+            mu, rsig, ln_g, ln_b = ln
+            yf = (yf - mu[rows]) * rsig[rows] * ln_g + ln_b
+        yq, xs = _quantize_rows(yf)
+
+        def chunk(j):
+            """One chunk of h from column j, and its pre-activation, from
+            the chunk's exact int32 sums."""
+            cols = slice(j, min(j + chunk_cols, hd))
+            acc = yq.to(torch.int32) @ w0q[:, cols].to(torch.int32)
+            pre = acc.float() * xs * s0[cols] + b0[cols]
+            return cols, pre, apply_act(pre, act)
+
+        for n0 in range(0, c, nb):
+            ncols = slice(n0, n0 + nb)
+            amax = torch.zeros(yq.shape[0], 1)
+            first = {}
+            for j in range(0, hd, chunk_cols):        # pass 1
+                _, pre, first[j] = chunk(j)
+                am = fragment_amax(pre, first[j], act)
+                # the shortcut finds the exact max
+                assert torch.equal(am, first[j].abs().amax(-1, keepdim=True))
+                amax = torch.maximum(amax, am)
+            hs = torch.clamp_min(amax, 1e-8) * (1.0 / 127.0)
+            acc2 = torch.zeros(yq.shape[0], nb, dtype=torch.int32)
+            for j in range(0, hd, chunk_cols):        # pass 2
+                cols, _, h = chunk(j)
+                assert torch.equal(h, first[j])         # recomputed bitwise
+                hq = torch.round(h / hs).to(torch.int32)
+                acc2 += hq @ w1q[cols, ncols].to(torch.int32)
+            out[rows, ncols] = (residual[rows, ncols].float()
+                                + acc2.float() * hs * s1[ncols]
+                                + b1[ncols])
+    return out
+
+
+def two_pass_case(m, c, hd, act, with_ln, tilings):
+    """``two_pass_mlp`` at each (row tile, chunk, NB) of ``tilings``
+    against ``mlp_int8_plain`` on seeded inputs of shape (m, c, hd):
+    bitwise equal."""
+    from givepose_torch.ops.quant_matmul import mlp_int8_plain
+
+    inp = mlp_inputs(11 + m, m=m, c=c, hd=hd)
+    t = {k: torch.from_numpy(v) for k, v in inp.items() if k != "ln"}
+    ln = tuple(map(torch.from_numpy, inp["ln"])) if with_ln else None
+    w0q, s0 = quantize_weights(t["w0"])
+    w1q, s1 = quantize_weights(t["w1"], t["gamma"])
+    b1 = t["b1"] * t["gamma"]
+    args = (t["y"], t["residual"], w0q, s0, t["b0"], w1q, s1, b1)
+    # one thread: PyTorch's CPU tanh takes its vectorized path except on a
+    # loop's tail, where it takes the scalar one, and a split of the loop
+    # over threads moves the tails; every tensor here is a multiple of the
+    # vector width, so in one thread both sides take the vectorized path
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ref = mlp_int8_plain(*args, act=act, out_dtype=torch.float32, ln=ln)
+        for tiling in tilings:
+            out = two_pass_mlp(*args, act, ln, *tiling)
+            assert torch.equal(out, ref), tiling
+    finally:
+        torch.set_num_threads(threads)
+    assert (ref - t["residual"]).abs().mean() > 1e-2
+
+
+@pytest.mark.parametrize("act", ["gelu_tanh", "gelu_exact"])
+@pytest.mark.parametrize("with_ln", [False, True])
+@pytest.mark.parametrize("m,c,hd", [(150, 128, 512), (40, 64, 192),
+                                    (70, 768, 256)])
+def test_two_pass_tiling_is_exact(act, with_ln, m, c, hd):
+    """The kernel's decomposition (64-row tiles, a ragged last one or M
+    below one tile; H in 128-column chunks, the last one half (H 192);
+    pass 1 for hs, pass 2 recomputing h and summing int32 partial
+    products) equals ``mlp_int8_plain`` bitwise, at every split of the
+    output columns into blocks of 64, 256, 512 or all C that divides C
+    (``block_cols`` in csrc/int8_mlp.cu picks one of them)."""
+    splits = sorted({nb for nb in (64, 256, 512, c) if c % nb == 0})
+    two_pass_case(m, c, hd, act, with_ln, [(64, 128, nb) for nb in splits])
+
+
+@pytest.mark.parametrize("tile_rows,chunk_cols,nb", [
+    (16, 64, 64), (32, 192, 128), (128, 64, 256), (48, 320, 384)])
+def test_two_pass_any_tiling_is_exact(tile_rows, chunk_cols, nb):
+    """The decomposition's exactness does not rest on the kernel's own
+    tile sizes: other row tiles (ragged against M 150), hidden chunks
+    (ragged against H 576) and column blocks give ``mlp_int8_plain``
+    bitwise too."""
+    two_pass_case(150, 768, 576, "gelu_tanh", True,
+                  [(tile_rows, chunk_cols, nb)])
+
+
+@pytest.mark.parametrize("act", ["gelu_tanh", "gelu_exact"])
+def test_amax_shortcut_is_exact(act):
+    """The kernel's amax shortcut against the full max over values that
+    take both of its paths: N(0, 1) rows, rows whose maximum is below 1/2,
+    negative rows, large values, and near-ties of the largest value (a
+    second value one step below the first, in every column)."""
+    from givepose_torch.ops.quant_matmul import apply_act
+
+    rng = np.random.default_rng(21)
+    rows = [rng.normal(size=(256, 128)), rng.normal(0, 0.15, (256, 128)),
+            -np.abs(rng.normal(size=(64, 128))),
+            rng.normal(0, 300, (64, 128))]
+    tie = rng.normal(size=(128, 128))
+    top = tie.max(-1, keepdims=True)
+    for col in range(0, 128, 16):
+        tie[np.arange(128) % 16 == col // 16, col] = (
+            top[np.arange(128) % 16 == col // 16, 0] * (1 - 2.0 ** -14))
+    rows.append(tie)
+    pre = torch.from_numpy(np.concatenate(rows).astype(np.float32))
+    h = apply_act(pre, act)
+    want = h.abs().amax(-1, keepdim=True)
+    assert torch.equal(fragment_amax(pre, h, act), want)
+    # both paths taken
+    p = pre.reshape(-1, 2, 8, 4, 2).permute(0, 1, 3, 2, 4).reshape(
+        pre.shape[0], -1, 16)
+    m = p.topk(2, dim=-1).values
+    fast = (m[..., 0] >= KERNEL_ACT_FLOOR) & (
+        m[..., 1] <= m[..., 0] * torch.tensor(KERNEL_NEAR))
+    assert fast.any() and (~fast).any()
+

@@ -71,9 +71,13 @@ def run_both(inp, act, with_ln, dtype):
 
 
 # (m, c, hd): the stage-2 (C 512) and stage-3 (C 1024) widths with a
-# ragged last row tile, and a narrow one
+# ragged last row tile, and narrow ones; the kernel's 64-row tiles: M 37
+# short of batch 32's stage-2 rows, M below one tile, stage 3 at its full
+# M (two column blocks); 256-column blocks (C 768) and a half last hidden
+# chunk (H 320)
 SHAPES = [(200, 512, 2048), (77, 1024, 4096), (48, 64, 256),
-          (33, 128, 512)]
+          (33, 128, 512), (8192 - 37, 512, 2048), (40, 512, 2048),
+          (2048, 1024, 4096), (130, 768, 3072), (70, 192, 320)]
 
 
 @pytest.mark.cuda
@@ -122,6 +126,28 @@ def test_kernel_rejects(cuda):
                           inp["w1"], inp["b1"], inp["gamma"],
                           out_dtype=torch.bfloat16)
     assert mlp_int8_cuda.launches == 0
+
+
+@pytest.mark.cuda
+def test_kernel_takes_misaligned_views(cuda):
+    """Operands that are contiguous views at an odd offset (weights below
+    the 16 bytes a TMA tensor map needs, s0 and b0 below the 8 of their
+    paired loads) give what the aligned tensors give."""
+    inp = make_inputs(7, 100, 128, 512, cuda)
+    w0q, s0 = quantize_weights(inp["w0"])
+    w1q, s1 = quantize_weights(inp["w1"], inp["gamma"])
+    args = [inp["y"], inp["residual"], w0q.t().contiguous(), s0, inp["b0"],
+            w1q.t().contiguous(), s1, inp["b1"]]
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    odd = [shifted(t) if i in (2, 3, 4, 5) else t for i, t in enumerate(args)]
+    assert odd[2].data_ptr() % 16 and odd[3].data_ptr() % 8
+    assert torch.equal(mlp_int8_cuda(*odd), mlp_int8_cuda(*args))
 
 
 @pytest.mark.cuda
