@@ -10,9 +10,10 @@ Phases, each of which exits non-zero when it fails:
    one nvcc per source, all started together;
 3. hold each kernel against its plain PyTorch version on the card:
    - the DCNv3 forward and backward: the three MAPEncoder shapes at batch
-     8, edge cases (stride 1, dilation 2, 16 and 96 and 5 channels per
-     group, large offsets, an odd output size) and, for the backward, zero
-     offsets, with x in bf16 and in f32;
+     8, edge cases (stride 1, dilation 2, 16, 96, 24, 12, 5 and 2 channels
+     per group, large offsets, offsets of 20 px on an output whose tiles
+     are ragged, an odd output size) and, for the backward, zero offsets,
+     with x in bf16 and in f32;
    - the windowed DCNv3 forward and the backward with the window (4 unless
      said): the MAPEncoder shapes, offsets that the clamp mostly holds,
      offsets exactly on the window's bound, a ragged last row tile,
@@ -175,6 +176,14 @@ EDGE_CASES = [
     ("odd_output", 2, 15, 13, 4, 64, 2, 1, 1, 2.0),
     ("gc96", 2, 12, 12, 4, 96, 2, 1, 1, 2.0),
     ("gc5", 2, 9, 10, 4, 5, 1, 1, 1, 2.0),
+    # offsets N(0, 20 px), most samples far outside a block's tile or the
+    # image, on an 11 x 13 output (tiles ragged at the last row and column)
+    ("far_x20", 2, 22, 26, 4, 64, 2, 1, 1, 20.0),
+    # narrow vectors: 24 and 12 channels per group (4 a lane, several lane
+    # segments a group in the forward), 2 channels per group
+    ("gc24", 2, 10, 12, 4, 24, 2, 1, 1, 2.0),
+    ("gc12_s1", 2, 8, 9, 4, 12, 1, 1, 1, 3.0),
+    ("gc2", 2, 9, 9, 4, 2, 2, 1, 1, 2.0),
 ]
 # windowed kernels: (name, n, h, w, group, gc, stride, pad, dilation,
 # offset multiplier, window, offsets exactly on the window's bound)
@@ -864,18 +873,21 @@ def time_layers(gen, card: str, window: int = 0, reps: int = 50) -> dict:
 def time_bwd_layers(gen, card: str, window: int = 0,
                     reps: int = 30) -> dict:
     """Phase 7b: the backward of each MAPEncoder DCNv3 layer at the
-    training batch 48, bf16 x, with ``window`` (0: unbounded).  Bytes: x,
-    grad_out, offset, mask read once, d_x (f32), d_offset, d_mask written
-    once; zeroing d_x before the kernel and casting it to bf16 after are
-    not counted (they are outside the kernel, and ``ms`` does not include
-    them either)."""
+    training batch 48, bf16 x, with ``window`` (0: unbounded).  ``ms`` is
+    the wrapper ``dcnv3_bwd_cuda``: the f32 zeros it fills d_x with (the
+    kernel adds into d_x) and the kernel; the fill alone is timed and
+    logged on its own line.  Casting d_x to x's dtype after it (in
+    ``DCNv3Function``) is not in ``ms``.  Bytes of the bound: x, grad_out,
+    offset, mask read once, d_x (f32), d_offset, d_mask written once; the
+    fill's write is not counted, as it is not work the function needs."""
     import torch
 
     from givepose_torch.ops.dcnv3 import dcnv3_core_bwd
     from givepose_torch.ops.dcnv3_cuda import dcnv3_bwd_cuda
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, err=0.0)
+    total = dict(ms=0.0, fill_ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                 err=0.0)
     for name, side in MAIN_LAYERS:
         x, off, m = dcnv3_inputs(gen, TRAIN_BATCH, side, side, 4, 64, 2, 1,
                                  1, 2.0)
@@ -892,6 +904,11 @@ def time_bwd_layers(gen, card: str, window: int = 0,
                  f"{TRAIN_BATCH} on {name}")
         del got, want
         ms = time_ms(lambda: dcnv3_bwd_cuda(x, off, m, g, **kw), reps, flush)
+        fill_ms = time_ms(lambda: torch.zeros(x.shape, device="cuda"), reps,
+                          flush)
+        log(f"  dcnv3_bwd window {window} {name} d_x fill alone "
+            f"(torch.zeros, {x.numel() * 4 / 1e6:.1f} MB f32): "
+            f"{fill_ms:.4f} ms of the kernel's {ms:.4f} ms [{card}]")
         plain_ms = time_ms(lambda: dcnv3_core_bwd(x, off, m, g, **kw), 3,
                            flush)
         n_bytes = (x.numel() * x.element_size() + g.numel() * 4
@@ -901,15 +918,18 @@ def time_bwd_layers(gen, card: str, window: int = 0,
         ops_ms = ops / F32_FLOP_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         log(f"  dcnv3_bwd window {window} {name} x{tuple(x.shape)} bf16: "
-            f"kernel {ms:.4f} ms, "
+            f"kernel (d_x fill included) {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s; ops {ops_ms:.4f} ms), "
             f"{n_bytes / ms / 1e6:.0f} GB/s, max_abs_err {err:.3e} [{card}]")
         total["ms"] += ms
+        total["fill_ms"] += fill_ms
         total["plain_ms"] += plain_ms
         total["bound_ms"] += bound_ms
         total["ops_ms"] += ops_ms
         total["err"] = max(total["err"], err)
+    log(f"  dcnv3_bwd window {window} three layers: {total['ms']:.4f} ms, of "
+        f"which the d_x fill alone {total['fill_ms']:.4f} ms [{card}]")
     return total
 
 

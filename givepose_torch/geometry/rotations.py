@@ -11,8 +11,10 @@ import torch
 
 
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
-                           min=eps)
+    # torch.maximum, not torch.clamp: jnp.maximum's gradient, 0.5 at a
+    # norm of exactly eps
+    n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    return v / torch.maximum(n, n.new_tensor(eps))
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -99,7 +101,7 @@ def axangle_to_mat(axis: torch.Tensor, angle: torch.Tensor,
 def lie_vec_to_mat(vec: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """so(3) exponential map: (...,3) axis-angle vector -> (...,3,3)."""
     theta = torch.linalg.vector_norm(vec, dim=-1, keepdim=True)
-    safe = torch.clamp(theta, min=eps)
+    safe = torch.maximum(theta, theta.new_tensor(eps))
     return axangle_to_mat(vec / safe, theta[..., 0])
 
 
@@ -107,7 +109,7 @@ def log_quat_to_mat(log_q: torch.Tensor) -> torch.Tensor:
     """Quaternion exponential then quat->mat: (...,4) -> (...,3,3)."""
     v = log_q[..., 1:]
     mag = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
-    safe = torch.clamp(mag, min=1e-8)
+    safe = torch.maximum(mag, mag.new_tensor(1e-8))
     return quat_to_mat(torch.cat([torch.cos(mag), torch.sin(mag) * v / safe],
                                  dim=-1))
 

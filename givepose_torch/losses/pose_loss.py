@@ -112,8 +112,12 @@ class PoseLossFn:
         elif cfg.r_loss == "angle":
             diff = torch.einsum("bij,bkj->bik", gt_rot, pred["rot"])
             trace = diff.diagonal(dim1=-2, dim2=-1).sum(-1)
-            ang = torch.arccos(torch.clamp((trace - 1) / 2, -0.99999,
-                                           0.99999))
+            # min/max, not torch.clamp: jnp.clip's gradient, 0.5 on the
+            # bound (ops/dcnv3.py _clip)
+            c = (trace - 1) / 2
+            ang = torch.arccos(torch.minimum(
+                torch.maximum(c, c.new_tensor(-0.99999)),
+                c.new_tensor(0.99999)))
             losses["Rot1"] = cfg.rot_1_w * torch.mean(
                 _smooth_l1(ang, torch.zeros_like(ang), beta=0.2))
         else:

@@ -15,22 +15,26 @@ Forward bound: memory.  About 10 flop per (pixel, group, tap, channel)
 against the bytes of x, offset, mask and out; at batch 32 the first
 MAPEncoder layer moves ~115 MB, ~34 us at 3.35 TB/s.  The kernel takes x
 in bf16 (halving the dominant read; the model's ``x_proj`` already is
-bf16) and loads each bilinear corner of a group as one coalesced 128-byte
-read, one warp per (n, output pixel, group).  Output is f32, as the TPU
-kernel's; the module casts it to its compute dtype.
+bf16).  A block walks a tile of output pixels (``dcn_tile``), computes
+each (pixel, group, tap)'s corners and weights once into shared memory,
+and then gives each warp one pixel, all its groups, with ``_vec``
+channels a lane (8 in 16-byte loads where gc and alignment allow).
+Output is f32, as the TPU kernel's; the module casts it to its compute
+dtype.
 
 Windowed forward bound: memory, as the forward.  A block stages the slab
 of x that its tile of output rows can reach in shared memory and gathers
 from there (the window bounds the slab; see the source's note).
 
 Backward bound: memory.  About 16 flop per (pixel, group, tap, channel)
-(4 corner dots, 4 scatter products and atomic adds) against x, grad_out,
-offset and mask read once and d_x, d_offset, d_mask written once: at
-training batch 48 the first layer moves ~395 MB, ~118 us at 3.35 TB/s
-(zeroing d_x and casting it to x's dtype are extra traffic outside the
-kernel).  Same warp layout as the forward; d_x is scattered with f32
-atomics, so its last bits vary from run to run.  Later work can cut the
-atomics (a shared-memory tile of d_x) and the repeated corner reads.
+(4 corner dots, 4 scatter products and adds) against x, grad_out, offset
+and mask read once and d_x, d_offset, d_mask written once: at training
+batch 48 the first layer moves ~395 MB, ~118 us at 3.35 TB/s.  The
+wrapper fills d_x with zeros (the kernel adds into it; casting d_x to x's
+dtype is ``DCNv3Function``'s).  Same shared-memory taps as the forward,
+on smaller tiles and at most ``BWD_VEC`` channels a lane; d_x takes f32
+reductions in L2, whose rate bounds the kernel, so its last bits vary
+from run to run.
 
 ``dcnv3`` dispatches through the ``torch.ops.givepose`` operators of
 ``ops/library.py`` (``dcnv3_fwd``, ``dcnv3_win_fwd``, ``dcnv3_bwd``), whose
@@ -57,22 +61,35 @@ BWD_SOURCE = "dcnv3_bwd.cu"
 _fns: dict[str, object] = {}
 
 
-def _kernel(source: str, name: str, n_pointers: int, n_tail: int = 1):
-    """The C entry point ``name`` of ``csrc/<source>``: ``n_pointers``
-    pointers with an int after the first (x's dtype), 11 int shapes,
-    offset_scale, ``n_tail`` ints (window where there is one, then vec)
-    and the stream."""
+# C entry point -> (pointers, ints after offset_scale): every entry point
+# takes its pointers with an int after the first (x's dtype), 11 int
+# shapes, offset_scale, those ints (window where there is one, vec, and
+# for the forward and the backward the tile's height and width) and the
+# stream
+_SIGNATURES = {"dcnv3_fwd": (4, 3), "dcnv3_win_fwd": (4, 2),
+               "dcnv3_bwd": (7, 4)}
+
+
+def _bind(fn, name: str, n_tail: int | None = None):
+    """Set the ctypes argument types of the C entry point ``name`` (with
+    ``n_tail`` ints after offset_scale, if given)."""
+    n_pointers, tail = _SIGNATURES[name]
+    n_tail = tail if n_tail is None else n_tail
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * (n_pointers - 1)
+                   + [ctypes.c_int] * 11
+                   + [ctypes.c_float] + [ctypes.c_int] * n_tail
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _kernel(source: str, name: str):
+    """The C entry point ``name`` of ``csrc/<source>``, bound."""
     if name not in _fns:
         from givepose_torch.ops._build import load_library
 
-        fn = getattr(load_library(source), name)
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
-                       + [ctypes.c_void_p] * (n_pointers - 1)
-                       + [ctypes.c_int] * 11
-                       + [ctypes.c_float] + [ctypes.c_int] * n_tail
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
+        _fns[name] = _bind(getattr(load_library(source), name), name)
     return _fns[name]
 
 
@@ -111,10 +128,96 @@ def _check_inputs(x, offset, mask, kernel, group, caller):
     return n, h, w, h_out, w_out, gc
 
 
-def _vec(gc: int, *tensors: torch.Tensor) -> int:
-    """2 when every lane may move two channels at once, else 1."""
-    aligned = all(t.data_ptr() % (2 * t.element_size()) == 0 for t in tensors)
-    return 2 if gc % 2 == 0 and aligned else 1
+def _vec(gc: int, *tensors: torch.Tensor, top: int = 8) -> int:
+    """The channels a lane of the forward or the backward moves at once:
+    the largest of 8, 4, 2, 1, at most ``top``, that divides gc and to
+    whose vector (16 bytes at most) every tensor is aligned."""
+    for vec in (v for v in (8, 4, 2) if v <= top):
+        if gc % vec == 0 and all(
+                t.data_ptr() % min(vec * t.element_size(), 16) == 0
+                for t in tensors):
+            return vec
+    return 1
+
+
+# the backward's widest vector: 4 channels a lane, so that each 16-byte
+# reduction into d_x covers whole 32-byte sectors with its neighbour lane
+# (with 8 a lane it covers half of every sector it touches: 1.7 times the
+# time, tools/dcnv3_breakdown.py)
+BWD_VEC = 4
+
+# shared memory a block of the forward or the backward may take: two
+# blocks share an SM (227 KB a block at most, 228 KB an SM)
+TILE_SMEM_BYTES = 112 * 1024
+TAP_BYTES = 32          # dcnv3_common.cuh Tap: 4 offsets, 4 weights
+DOT_BYTES = 16          # the backward's four f32 dots of a tap
+
+
+def tile_smem_bytes(tile_h: int, tile_w: int, group: int, kernel: int,
+                    backward: bool) -> int:
+    """Shared memory of a block: its pixels' taps (and, backward, their
+    dots), as ``dcnv3_common.cuh`` tile_smem_bytes."""
+    per_tap = TAP_BYTES + (DOT_BYTES if backward else 0)
+    return tile_h * tile_w * group * kernel * kernel * per_tap
+
+
+def dcn_tile(group: int, kernel: int, backward: bool) -> tuple[int, int]:
+    """Output pixels (rows, columns) a block walks: the forward 4 x 8 (four
+    pixels a warp; 37 KB of taps at the MAPEncoder's 4 groups of 3 x 3),
+    the backward 2 x 4 (one pixel a warp; 14 KB of taps and dots), halved
+    along the longer side until the taps fit in ``TILE_SMEM_BYTES``;
+    raises if one pixel's do not.  The backward's tile is small because
+    its reductions into d_x run in L2, which holds the d_x of the images
+    that the blocks in flight reach: at batch 48 a 4 x 8 tile (about 12
+    images of 4 MB at layer 0) took 1.6 times as long as 2 x 4
+    (``tools/dcnv3_breakdown.py``, PERF.md)."""
+    th, tw = (2, 4) if backward else (4, 8)
+    while tile_smem_bytes(th, tw, group, kernel, backward) > TILE_SMEM_BYTES:
+        if th * tw == 1:
+            raise ValueError(f"the taps of one pixel ({group} groups, "
+                             f"kernel {kernel}) exceed the shared memory of "
+                             "a block")
+        if tw >= th:
+            tw //= 2
+        else:
+            th //= 2
+    return th, tw
+
+
+def _shape_args(x, offset, kernel, stride, pad, dilation, group,
+                offset_scale) -> list:
+    n, h, w, c_total = x.shape
+    if n > 65535:
+        raise ValueError(f"batch {n} exceeds the kernels' grid (65535)")
+    return [n, h, w, offset.shape[1], offset.shape[2], group,
+            c_total // group, kernel, stride, pad, dilation,
+            float(offset_scale)]
+
+
+def fwd_args(x, offset, mask, out, kernel, stride, pad, dilation, group,
+             offset_scale) -> tuple:
+    """The arguments of the C entry point ``dcnv3_fwd`` for checked
+    inputs, on the current stream of x's device."""
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    shapes = _shape_args(x, offset, kernel, stride, pad, dilation, group,
+                         offset_scale)
+    return (x.data_ptr(), int(x.dtype == torch.bfloat16), offset.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), *shapes, _vec(shapes[6], x),
+            *dcn_tile(group, kernel, False), stream)
+
+
+def bwd_args(x, offset, mask, grad_out, d_x, d_offset, d_mask, kernel,
+             stride, pad, dilation, group, offset_scale, window) -> tuple:
+    """The arguments of the C entry point ``dcnv3_bwd`` for checked
+    inputs, on the current stream of x's device."""
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    shapes = _shape_args(x, offset, kernel, stride, pad, dilation, group,
+                         offset_scale)
+    return (x.data_ptr(), int(x.dtype == torch.bfloat16), offset.data_ptr(),
+            mask.data_ptr(), grad_out.data_ptr(), d_x.data_ptr(),
+            d_offset.data_ptr(), d_mask.data_ptr(), *shapes, int(window),
+            _vec(shapes[6], x, grad_out, top=BWD_VEC),
+            *dcn_tile(group, kernel, True), stream)
 
 
 def dcnv3_cuda(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -130,14 +233,10 @@ def dcnv3_cuda(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     c_total = x.shape[-1]
     out = torch.empty((n, h_out, w_out, c_total), device=x.device,
                       dtype=torch.float32)
-    vec = _vec(gc, x)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel(FWD_SOURCE, "dcnv3_fwd", 4)(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), offset.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), n, h, w, h_out, w_out, group,
-            gc, kernel, stride, pad, dilation, float(offset_scale), vec,
-            stream)
+        err = _kernel(FWD_SOURCE, "dcnv3_fwd")(*fwd_args(
+            x, offset, mask, out, kernel, stride, pad, dilation, group,
+            offset_scale))
     if err != 0:
         raise RuntimeError(f"dcnv3_fwd launch failed: cudaError {err}")
     dcnv3_cuda.launches += 1
@@ -168,7 +267,7 @@ def dcnv3_win_cuda(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     vec = 2 if gc % 2 == 0 else 1
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel(WIN_FWD_SOURCE, "dcnv3_win_fwd", 4, 2)(
+        err = _kernel(WIN_FWD_SOURCE, "dcnv3_win_fwd")(
             x.data_ptr(), int(x.dtype == torch.bfloat16), offset.data_ptr(),
             mask.data_ptr(), out.data_ptr(), n, h, w, h_out, w_out, group,
             gc, kernel, stride, pad, dilation, float(offset_scale),
@@ -209,15 +308,10 @@ def dcnv3_bwd_cuda(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     d_x = torch.zeros(x.shape, device=x.device, dtype=torch.float32)
     d_offset = torch.empty_like(offset)
     d_mask = torch.empty_like(mask)
-    vec = _vec(gc, x, grad_out)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel(BWD_SOURCE, "dcnv3_bwd", 7, 2)(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), offset.data_ptr(),
-            mask.data_ptr(), grad_out.data_ptr(), d_x.data_ptr(),
-            d_offset.data_ptr(), d_mask.data_ptr(), n, h, w, h_out, w_out,
-            group, gc, kernel, stride, pad, dilation, float(offset_scale),
-            int(window), vec, stream)
+        err = _kernel(BWD_SOURCE, "dcnv3_bwd")(*bwd_args(
+            x, offset, mask, grad_out, d_x, d_offset, d_mask, kernel, stride,
+            pad, dilation, group, offset_scale, window))
     if err != 0:
         raise RuntimeError(f"dcnv3_bwd launch failed: cudaError {err}")
     dcnv3_bwd_cuda.launches += 1

@@ -150,3 +150,58 @@ def test_dispatch_raises(impl, window, exc):
         dcnv3(torch.from_numpy(x), torch.from_numpy(off),
               torch.from_numpy(m), group=2, window=window, impl=impl)
     assert dcnv3_cuda.launches == 0
+
+
+# (h_out, w_out, group, kernel, backward): the MAPEncoder layers, ragged
+# and tiny outputs, and tap counts that force a smaller tile
+TILE_CASES = [(32, 32, 4, 3, False), (32, 32, 4, 3, True), (8, 8, 4, 3, True),
+              (11, 13, 4, 3, True), (1, 1, 4, 3, False), (5, 40, 16, 5, True),
+              (9, 3, 16, 7, True), (7, 7, 1, 1, False)]
+
+
+@pytest.mark.parametrize("h_out,w_out,group,kernel,backward", TILE_CASES)
+def test_tile_fits_and_covers_every_pixel_once(h_out, w_out, group, kernel,
+                                               backward):
+    """The forward's and the backward's tile: its taps fit in the shared
+    memory of a block with a second block beside it (227 KB a block at
+    most), and the grid the kernels launch (ceil-divided output, row-major
+    tile) reaches each output pixel exactly once."""
+    from givepose_torch.ops.dcnv3_cuda import (TILE_SMEM_BYTES, dcn_tile,
+                                               tile_smem_bytes)
+
+    th, tw = dcn_tile(group, kernel, backward)
+    smem = tile_smem_bytes(th, tw, group, kernel, backward)
+    assert smem <= TILE_SMEM_BYTES and 2 * smem <= 228 * 1024
+    assert smem <= 227 * 1024
+    seen = np.zeros((h_out, w_out), int)
+    for by in range(-(-h_out // th)):
+        for bx in range(-(-w_out // tw)):
+            for pix in range(th * tw):
+                oh, ow = by * th + pix // tw, bx * tw + pix % tw
+                if oh < h_out and ow < w_out:
+                    seen[oh, ow] += 1
+    assert (seen == 1).all()
+
+
+def test_tile_raises_when_one_pixel_does_not_fit():
+    from givepose_torch.ops.dcnv3_cuda import dcn_tile
+
+    with pytest.raises(ValueError, match="one pixel"):
+        dcn_tile(64, 9, True)
+
+
+@pytest.mark.parametrize("gc,dtype,shift,want", [
+    (64, torch.bfloat16, 0, 8), (64, torch.float32, 0, 8),
+    (96, torch.bfloat16, 0, 8), (12, torch.bfloat16, 0, 4),
+    (6, torch.float32, 0, 2), (5, torch.bfloat16, 0, 1),
+    (64, torch.bfloat16, 4, 4), (64, torch.bfloat16, 1, 1),
+    (64, torch.float32, 2, 2)])
+def test_vector_width(gc, dtype, shift, want):
+    """The channels a lane moves: the largest of 8, 4, 2, 1 that divides gc
+    and to whose vector (at most 16 bytes) x is aligned; a view shifted by
+    ``shift`` elements from an aligned buffer narrows it."""
+    from givepose_torch.ops.dcnv3_cuda import _vec
+
+    x = torch.zeros(64 * 4 + 16, dtype=dtype)[shift:shift + 64 * 4]
+    assert x.data_ptr() % 16 == (shift * x.element_size()) % 16
+    assert _vec(gc, x) == want

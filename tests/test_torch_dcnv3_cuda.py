@@ -282,3 +282,69 @@ def test_windowed_output_is_differentiable(cuda):
     for got, ref in ((xb.grad.float(), want[0].to(torch.bfloat16).float()),
                      (offr.grad, want[1]), (mr.grad, want[2])):
         assert (got - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
+# the forward's and the backward's tiles (4 x 8 output pixels a block, at
+# most one pixel a warp at a time): (gc, stride, h, w, offsets), offsets
+# "far" N(0, 20 px), most samples outside the block's reach or the image;
+# "band" U(-3, 3) px on a small image, corners in the pad band of every
+# edge; "ragged" N(0, 2 px) with an 11 x 13 output, tiles ragged at the
+# last row and column.  gc 24 and 12 take the narrow vectors with a dot
+# shared by several lane segments, gc 2 two channels a lane.
+TILED_CASES = [(64, 2, 22, 26, "far"), (64, 1, 6, 7, "band"),
+               (64, 2, 22, 26, "ragged"), (24, 2, 10, 12, "ragged"),
+               (12, 1, 8, 9, "band"), (2, 2, 9, 9, "far")]
+
+
+def tiled_inputs(seed, gc, stride, h, w, kind, device):
+    x, off, m = make_inputs(seed, 2, h, w, 4, gc, stride, 1, 2.0, device)
+    g = torch.Generator(device=device).manual_seed(seed + 100)
+    if kind == "far":
+        off = torch.randn(off.shape, generator=g, device=device) * 20.0
+    elif kind == "band":
+        off = torch.rand(off.shape, generator=g, device=device) * 6.0 - 3.0
+    return x, off, m
+
+
+def check_both(x, off, m, kw, seed):
+    """Forward and backward kernels against the plain versions, each
+    output within 1e-4 * max|ref|."""
+    out = dcnv3_cuda(x, off, m, **kw)
+    ref = dcnv3_core(x.float(), off, m, **kw)
+    g = torch.randn(ref.shape, generator=torch.Generator(
+        device=x.device).manual_seed(seed), device=x.device)
+    got = dcnv3_bwd_cuda(x, off, m, g, **kw)
+    want = dcnv3_core_bwd(x, off, m, g, **kw)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    for name, a, b in zip(("d_x", "d_offset", "d_mask"), got, want):
+        assert a.shape == b.shape, name
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item(), \
+            name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("gc,stride,h,w,kind", TILED_CASES)
+def test_tiled_kernels_match_plain(cuda, dtype, gc, stride, h, w, kind):
+    x, off, m = tiled_inputs(gc + stride, gc, stride, h, w, kind, cuda)
+    if kind == "far":      # most samples outside the image: some inside
+        assert ((off.abs() < 4).float().mean() > 0.1).item()
+    check_both(x.to(dtype), off, m, dict(stride=stride, group=4), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shift,vec", [
+    (torch.bfloat16, 1, 1), (torch.bfloat16, 2, 2), (torch.bfloat16, 4, 4),
+    (torch.float32, 2, 2), (torch.float32, 1, 1)])
+def test_kernels_take_misaligned_x(cuda, dtype, shift, vec):
+    """x a contiguous view ``shift`` elements into a buffer: the wrappers
+    narrow the vector to x's alignment, and both kernels stay right."""
+    from givepose_torch.ops.dcnv3_cuda import _vec
+
+    x, off, m = make_inputs(11, 2, 12, 14, 4, 64, 2, 1, 2.0, cuda)
+    buf = torch.empty(x.numel() + 8, dtype=dtype, device=cuda)
+    xs = buf[shift:shift + x.numel()].view(x.shape)
+    xs.copy_(x)
+    assert _vec(64, xs) == vec
+    check_both(xs, off, m, dict(stride=2, group=4), 5)

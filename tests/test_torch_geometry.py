@@ -81,3 +81,34 @@ def test_pose_from_pred_centroid_z(z_type, is_wild6d, rep, is_allo):
     jr, jt = jax_pa.pose_from_pred_centroid_z(*map(jnp.asarray, args), **kw)
     close(r, jr)
     close(t, jt)
+
+
+
+# inputs whose normalized part (slice) has a norm of exactly the function's
+# eps, where jnp.maximum's gradient splits (0.5) and torch.clamp's does not
+# (1).  At the lie_vec tie both give the same gradient, because the axis
+# is normalized again, which removes the radial part that the tie scales.
+EPS12, EPS8 = float(np.float32(1e-12)), float(np.float32(1e-8))
+TIE_CASES = [("ego_rot6d", [EPS12, 0, 0, 0, 1, 0], slice(0, 3), EPS12),
+             ("ego_quat", [EPS12 / 2] * 4, slice(0, 4), EPS12),
+             ("ego_lie_vec", [EPS8, 0, 0], slice(0, 3), EPS8),
+             ("ego_log_quat", [0.3, EPS8, 0, 0], slice(1, 4), EPS8)]
+
+
+@pytest.mark.parametrize("r_type,vec,part,eps", TIE_CASES,
+                         ids=[c[0] for c in TIE_CASES])
+def test_norm_tie_grads_match_jax(r_type, vec, part, eps):
+    """At a norm of exactly eps the gradient of ``get_rot_mat`` is
+    jax.grad's, to 1e-5 of its largest entry."""
+    import jax
+
+    x = np.asarray([vec, vec], np.float32)
+    assert torch.linalg.vector_norm(torch.from_numpy(x[0, part])) == eps
+    assert float(jnp.linalg.norm(jnp.asarray(x[0, part]))) == eps
+    w = np.random.default_rng(7).normal(size=(2, 3, 3)).astype(np.float32)
+    want = np.asarray(jax.grad(lambda v: jnp.sum(
+        jax_rot.get_rot_mat(v, r_type) * w))(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    (rot.get_rot_mat(xt, r_type) * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), want,
+                               atol=1e-5 * np.abs(want).max())

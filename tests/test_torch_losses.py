@@ -99,6 +99,31 @@ def test_loss_dict_and_grads_match_jax(r_loss, pose_loss_type):
                                    atol=1e-5 * np.abs(want).max(), err_msg=k)
 
 
+
+@pytest.mark.parametrize("sign", [1, -1], ids=["plus", "minus"])
+def test_angle_loss_tie_grads_match_jax(sign):
+    """The 'angle' loss with (trace - 1) / 2 exactly on the clip's bound
+    +-0.99999, where jnp.clip's gradient is 0.5 (torch.clamp's is 1): the
+    last sample is not symmetric, its ground truth the identity and its
+    prediction diag(t, 0, 0), so its trace is t, exactly."""
+    pred, data = make_case(4)
+    c = np.float32(0.99999) * sign
+    t = np.float32(1) + 2 * c
+    assert (t - np.float32(1)) / np.float32(2) == c
+    pred["rot"][-1] = np.diag([t, 0, 0])
+    data["rotation"][-1] = np.eye(3)
+    data["sym_info"][-1] = [0, 1, 0, 0]
+    cfg = dict(r_loss="angle", pose_loss_type="l1")
+    jfn = jax_losses.PoseLossFn(JaxLossConfig(**cfg))
+    tfn = losses.PoseLossFn(LossConfig(**cfg))
+    jd = to_jax(data)
+    jgrads = jax.grad(lambda p: jfn(p, jd)["Rot1"])(to_jax(pred))
+    tp = to_torch(pred, grad=True)
+    tfn(tp, to_torch(data))["Rot1"].backward()
+    want = np.asarray(jgrads["rot"])
+    np.testing.assert_allclose(tp["rot"].grad.numpy(), want,
+                               atol=1e-5 * np.abs(want).max())
+
 def test_closest_sym_rot_picks_jax_index():
     pred, data = make_case(5)
     flags = (data["sym_info"][:, 0] == 1).astype(np.float32)

@@ -184,7 +184,8 @@ def test_port_imports_no_jax():
         "import givepose_torch.cli.export, givepose_torch.eval\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'tools')\n"
-        "import train_path_spread, mlp_breakdown\n"
+        "import train_path_spread, mlp_breakdown, dcnv3_breakdown\n"
+        "import reduction_probe\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'givepose_tpu')]\n"
         "assert not bad, bad\n"
