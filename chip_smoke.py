@@ -26,9 +26,11 @@ Phases, each of which exits non-zero when it fails:
      last hidden chunk (H 320);
    - the W8A8 dense matmuls (``int8_qmm``, x quantized in the kernel, and
      ``int8_qmm_pre``, x quantized before) at the four ConvNeXt-B MLP
-     matmul shapes of batch 32 and at ragged shapes, x and out in bf16 and
-     in f32, for each activation; and ``QuantDense`` loaded from a bf16
-     ``nn.Linear``'s state dict;
+     matmul shapes of batch 32, at ragged shapes and at the edges of their
+     tiling (M 37 short of a tile and below one, N 48, K 4096, more units
+     than persistent blocks), x and out in bf16 and in f32, for each
+     activation, and on views at an odd offset; and ``QuantDense`` loaded
+     from a bf16 ``nn.Linear``'s state dict;
 4. serve batch-32 requests through full-width ConvNeXt-B PoseNet (bf16,
    seeded random weights, DCNv3 offset and mask projections perturbed so
    that samples land off the grid), first under the default ModelConfig,
@@ -43,7 +45,8 @@ Phases, each of which exits non-zero when it fails:
    launches per request, an artifact under 5 MB;
 5. run the W8A8 dense path (``QuantDense`` layers, and
    ``quantize_activations`` into ``quant_matmul_pre``) over the stage-2
-   and stage-3 MLPs of 3 batch-32 requests, counting both kernels;
+   and stage-3 MLPs of 3 batch-32 requests, counting both kernels, and
+   time a request (wall, and device busy from torch.profiler);
 6. train, first under the default Config (Ranger, lr 1e-3, clip 5, batch
    48), then with ``dcn_window=4``: 5 steps on a seeded batch (256²
    crops, 64² maps and masks, 1024 model points, random rotations, half
@@ -59,8 +62,9 @@ Phases, each of which exits non-zero when it fails:
    (kernel, plain version, bound; for the int8 MLP also the bound of the
    operations its two-pass design executes, TOP/s, the bf16 block MLP it
    replaces, the ratio of the two per forward and the earlier mma.sync
-   design's time; for the dense matmuls the bf16 ``F.linear`` and
-   ``torch._int_mm`` on the same operands), the PoseNet forward of both
+   design's time; for the dense matmuls TOP/s, the share of the bound,
+   the bf16 ``F.linear`` and ``torch._int_mm`` on the same operands and
+   the earlier mma.sync design's time), the PoseNet forward of both
    configurations, eager and from its artifact, and the train step of both
    with CUDA events, break the forwards' and the default
    train step's device time down by op with torch.profiler, and the
@@ -156,7 +160,19 @@ QMM_RAGGED = [("ragged", 77, 96, 48, "gelu_tanh"),
               ("k100", 33, 100, 250, "gelu_tanh"),
               ("odd", 5, 37, 19, "gelu_tanh"),
               ("tpu_test", 48, 192, 160, "gelu_tanh")]
+# edges of the wgmma design's tiling (ops/quant_matmul.py qmm_plan: B4 64
+# x 256 tiles, B5 128 x 128, persistent blocks): M 37 short of a tile and
+# below one, N 48, K 4096 (B4's rows do not all stay in shared memory),
+# more units than blocks (B4 at M 9000)
+QMM_EDGES = [("ragged_tile", BATCH * 16 * 16 - 37, 512, 2048, "gelu_tanh"),
+             ("below_tile", 40, 512, 2048, "gelu_tanh"),
+             ("n48", 300, 256, 48, "gelu_tanh"),
+             ("k4096", 256, 4096, 1024, "none"),
+             ("more_units", 9000, 256, 512, "gelu_tanh")]
 QMM_ACTS = ("none", "gelu_tanh", "gelu_exact")
+# the four batch-32 matmuls in the earlier mma.sync design (PR 4), per
+# kernel, as PERF.md records them on the H100 (tools/qmm_breakdown.py)
+QMM_MMA_SYNC_MS = {"int8_qmm": 0.8510, "int8_qmm_pre": 0.5046}
 # dense kernel vs plain version: max err within QMM_FLIPS one-step flips of
 # a quantized x value (B4 only; times GELU's largest slope 1.13) plus 2 ulp
 # of the output dtype at max|ref|, mean within MLP_MEAN_BAR * mean|ref|
@@ -1489,9 +1505,10 @@ def qmm_bars(ref, flip: float = 0.0) -> tuple[float, float]:
 
 def check_qmm_kernels(gen) -> tuple[float, float]:
     """Phase 3, the W8A8 dense kernels against their plain versions at the
-    batch-32 ConvNeXt-B MLP shapes and the ragged ones, x and out in bf16
-    and f32, for every activation; returns the largest max abs error of
-    B4 and of B5."""
+    batch-32 ConvNeXt-B MLP shapes, the ragged ones and the tiling's edges,
+    x and out in bf16 and f32, for every activation, then on operands that
+    are views at an odd offset (equal to the aligned ones' outputs);
+    returns the largest max abs error of B4 and of B5."""
     import torch
 
     from givepose_torch.ops.quant_matmul import (qmm_cuda, qmm_flip,
@@ -1500,7 +1517,7 @@ def check_qmm_kernels(gen) -> tuple[float, float]:
                                                  quant_matmul_pre_plain)
 
     worst = [0.0, 0.0]
-    for name, m, k, n, _ in QMM_SHAPES + QMM_RAGGED:
+    for name, m, k, n, _ in QMM_SHAPES + QMM_RAGGED + QMM_EDGES:
         for dtype in (torch.bfloat16, torch.float32):
             op = qmm_operands(gen, m, k, n, dtype)
             flip = qmm_flip(op["x"], op["wq"], op["ws"])
@@ -1536,6 +1553,28 @@ def check_qmm_kernels(gen) -> tuple[float, float]:
             log(f"  int8_qmm / int8_qmm_pre {name} ({m}, {k} -> {n}) "
                 f"{str(dtype).split('.')[1]:<8} of {m * n} outputs: "
                 + "; ".join(parts) + " ok")
+    op = qmm_operands(gen, 100, 256, 384, torch.bfloat16)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    odd = {key: shifted(op[key]) for key in ("x", "xq", "wt", "ws", "b")}
+    same = (torch.equal(qmm_cuda(odd["x"], odd["wt"], odd["ws"], odd["b"],
+                                 "gelu_tanh"),
+                        qmm_cuda(op["x"], op["wt"], op["ws"], op["b"],
+                                 "gelu_tanh"))
+            and torch.equal(qmm_pre_cuda(odd["xq"], op["xs"], odd["wt"],
+                                         odd["ws"], odd["b"], "gelu_tanh"),
+                            qmm_pre_cuda(op["xq"], op["xs"], op["wt"],
+                                         op["ws"], op["b"], "gelu_tanh")))
+    log(f"  int8_qmm / int8_qmm_pre on views at an odd offset (100, 256 -> "
+        f"384): {'bitwise equal to' if same else 'UNLIKE'} the aligned "
+        f"operands' outputs")
+    if not same:
+        fail("a dense kernel gives another result on misaligned views")
     return worst[0], worst[1]
 
 
@@ -1587,13 +1626,14 @@ def check_quant_dense(gen) -> None:
              "replaces")
 
 
-def dense_path(gen) -> tuple[dict, float]:
+def dense_path(gen) -> tuple[dict, float, object]:
     """Phase 5, the W8A8 dense path: for each of 3 batch-32 requests, the
     stage-2 and stage-3 ConvNeXt-B MLPs as ``QuantDense`` layers (fc1 with
     its GELU in the epilogue, fc2), and as ``quantize_activations`` into
     ``quant_matmul_pre`` with the same layers' weights.  Returns each
-    kernel's launches (4 of each per request) and the largest departure
-    of the int8 MLP from the bf16 one (relative to max|bf16|)."""
+    kernel's launches (4 of each per request), the largest departure of
+    the int8 MLP from the bf16 one (relative to max|bf16|), and the
+    request as a function of its index, for ``time_dense_path``."""
     import torch
     import torch.nn.functional as F
 
@@ -1617,10 +1657,9 @@ def dense_path(gen) -> tuple[dict, float]:
                           device=gen.device).to(bf16)
               for _ in range(REQUESTS)]
         stages.append((fc1, fc2, pre, xs))
-    reset_counts()
-    outs = []
-    with torch.inference_mode():
-        for r in range(REQUESTS):
+    def request(r: int) -> list:
+        outs = []
+        with torch.inference_mode():
             for fc1, fc2, pre, xs in stages:
                 x = xs[r]
                 y = fc2(fc1(x))
@@ -1630,6 +1669,10 @@ def dense_path(gen) -> tuple[dict, float]:
                 gq, gs = quantize_activations(hid)
                 z = quant_matmul_pre(gq, gs, w2q, w2s, b2)
                 outs.append((x, y, z, fc1, fc2))
+        return outs
+
+    reset_counts()
+    outs = [o for r in range(REQUESTS) for o in request(r)]
     torch.cuda.synchronize()
     counts = read_counts()
     check_counts(counts, {"int8_qmm": 4 * REQUESTS,
@@ -1650,7 +1693,41 @@ def dense_path(gen) -> tuple[dict, float]:
                 worst = max(worst, rel)
     if worst > 5e-2:
         fail(f"the int8 dense MLP departs from the bf16 one by {worst:.3e}")
-    return counts, worst
+    return counts, worst, request
+
+
+def time_dense_path(request, card: str, reps: int = 10) -> tuple:
+    """Phase 5: one dense-path request (``dense_path``: 4 int8_qmm + 4
+    int8_qmm_pre launches with their quantization and layers) at batch 32:
+    wall time from the host clock around each request ending in a
+    synchronisation, mean over ``reps`` after a warm-up, and the device's
+    busy time per request from torch.profiler over 3 requests.  Returns
+    (wall ms, busy ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    request(0)
+    walls = []
+    for i in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        request(i % REQUESTS)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for r in range(REQUESTS):
+            request(r)
+        torch.cuda.synchronize()
+    busy = device_busy_ms(prof) / REQUESTS
+    wall = sum(walls) / reps
+    log(prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=10, max_name_column_width=48))
+    log(f"  dense path per batch-{BATCH} request (stage-2 and stage-3 MLPs "
+        f"through QuantDense and through quant_matmul_pre): wall "
+        f"{wall:.3f} ms (min {min(walls):.3f}, max {max(walls):.3f}), "
+        f"device busy {busy:.3f} ms ({100 * busy / wall:.0f} %) [{card}]")
+    return wall, busy
 
 
 def time_qmm(gen, card: str, reps: int = 20) -> dict:
@@ -1659,12 +1736,18 @@ def time_qmm(gen, card: str, reps: int = 20) -> dict:
     version, its bound (2 M N K int8 ops at 1979 TOP/s; bytes: x (bf16 for
     B4, int8 and the row scales for B5), the int8 weights, scales and bias,
     the bf16 output, at 3.35 TB/s), and as yardsticks the bf16
-    ``F.linear`` (+ GELU) and ``torch._int_mm`` on the same operands.
-    Returns the four matmuls summed, per kernel."""
+    ``F.linear`` (+ GELU) and ``torch._int_mm`` on the same operands.  The
+    kernel is timed through its C entry point with the wrapper's arguments
+    made once, as ``tools/qmm_breakdown.py`` times it: the wrappers' host
+    time (``time_dispatch``) exceeds the L2 flush before each call, and
+    would pass into the device time.  Returns the four matmuls summed, per
+    kernel."""
     import torch
     import torch.nn.functional as F
 
-    from givepose_torch.ops.quant_matmul import (qmm_cuda, qmm_pre_cuda,
+    from givepose_torch.ops._build import load_library
+    from givepose_torch.ops.quant_matmul import (QMM_SOURCE, bind_qmm,
+                                                 qmm_call_args,
                                                  quant_matmul_plain,
                                                  quant_matmul_pre_plain)
 
@@ -1674,10 +1757,22 @@ def time_qmm(gen, card: str, reps: int = 20) -> dict:
     tot = {k: {key: 0.0 for key in keys} for k in ("int8_qmm",
                                                     "int8_qmm_pre")}
     bf16 = torch.bfloat16
+    lib = load_library(QMM_SOURCE)
+    entries = {name: bind_qmm(getattr(lib, name), pre)
+               for name, pre in (("int8_qmm", False), ("int8_qmm_pre", True))}
+
+    def entry(name, args):
+        def call():
+            err = entries[name](*args)
+            if err:
+                fail(f"{name} launch failed: cudaError {err}")
+        return call
+
     for name, m, k, n, act in QMM_SHAPES:
         op = qmm_operands(gen, m, k, n, bf16)
         w16 = (op["wq"].float() * op["ws"]).t().contiguous().to(bf16)
         b16 = op["b"].to(bf16)
+        out = torch.empty(m, n, dtype=bf16, device=gen.device)
 
         def linear():
             y = F.linear(op["x"], w16, b16)
@@ -1690,13 +1785,16 @@ def time_qmm(gen, card: str, reps: int = 20) -> dict:
         ops_ms = ops / INT8_OPS_PER_S * 1e3
         runs = {
             "int8_qmm": (
-                lambda: qmm_cuda(op["x"], op["wt"], op["ws"], op["b"], act),
+                entry("int8_qmm", qmm_call_args(
+                    op["x"], None, op["wt"], op["ws"], op["b"], out, act,
+                    False)),
                 lambda: quant_matmul_plain(op["x"], op["wq"], op["ws"],
                                            op["b"], act),
                 2 * m * k),
             "int8_qmm_pre": (
-                lambda: qmm_pre_cuda(op["xq"], op["xs"], op["wt"], op["ws"],
-                                     op["b"], act),
+                entry("int8_qmm_pre", qmm_call_args(
+                    op["xq"], op["xs"], op["wt"], op["ws"], op["b"], out,
+                    act, True)),
                 lambda: quant_matmul_pre_plain(op["xq"], op["xs"], op["wq"],
                                                op["ws"], op["b"], act),
                 m * k + 4 * m)}
@@ -1707,7 +1805,8 @@ def time_qmm(gen, card: str, reps: int = 20) -> dict:
             bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
             bound_ms = max(ops_ms, bytes_ms)
             log(f"  {kname} {name} ({m}, {k} -> {n}) bf16, {act}: kernel "
-                f"{ms:.4f} ms ({ops / ms / 1e9:.0f} TOP/s), plain "
+                f"{ms:.4f} ms ({ops / ms / 1e9:.0f} TOP/s, "
+                f"{100 * bound_ms / ms:.1f} % of the bound), plain "
                 f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (ops "
                 f"{ops_ms:.4f} ms at 1979 TOP/s; {n_bytes / 1e6:.1f} MB, "
                 f"{bytes_ms:.4f} ms at 3.35 TB/s), bf16 F.linear"
@@ -1721,7 +1820,9 @@ def time_qmm(gen, card: str, reps: int = 20) -> dict:
                 t[key] += v
     for kname, t in tot.items():
         log(f"  {kname} over the four batch-32 matmuls: kernel "
-            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms, plain "
+            f"{t['ms']:.4f} ms ({100 * t['bound_ms'] / t['ms']:.1f} % of the "
+            f"bound; mma.sync design: {QMM_MMA_SYNC_MS[kname]:.4f} ms, "
+            f"PERF.md), bound {t['bound_ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bf16 F.linear {t['bf16_linear_ms']:.4f}"
             f" ms, torch._int_mm {t['int_mm_ms']:.4f} ms [{card}]")
     return tot
@@ -1817,6 +1918,27 @@ def time_dispatch(gen, card: str, calls: int = 30, rounds: int = 7) -> dict:
     log(f"  int8_mlp wrapper's host time per batch-{BATCH} fast request: "
         f"30 x {res_us['int8_mlp'][1]:.2f} µs = "
         f"{30 * res_us['int8_mlp'][1] / 1e3:.4f} ms [{card}]")
+    # the dense kernels' C entry points alone (the plan and arguments made
+    # once): the tensor-map encodes (one for B4, two for B5), the
+    # shared-memory attribute and the launch, against the wrapper's checks,
+    # pad rule, plan and output allocation around them
+    from givepose_torch.ops._build import load_library
+    from givepose_torch.ops.quant_matmul import (QMM_SOURCE, bind_qmm,
+                                                 qmm_call_args)
+
+    lib = load_library(QMM_SOURCE)
+    for name, pre in (("int8_qmm", False), ("int8_qmm_pre", True)):
+        fn = bind_qmm(getattr(lib, name), pre)
+        out = torch.empty(qm, qn, dtype=bf16, device=gen.device)
+        args = qmm_call_args(q["xq"] if pre else q["x"],
+                             q["xs"] if pre else None, q["wt"], q["ws"],
+                             q["b"], out, qact, pre)
+        entry = min(host_us(lambda: fn(*args)) for _ in range(rounds))
+        log(f"  {name} C entry point issued from the host: {entry:.2f} µs "
+            f"per call (tensor-map encode{'s' if pre else ''}, shared-memory"
+            f" attribute, launch) of the wrapper's {res_us[name][1]:.2f} µs "
+            f"[{card}]")
+    torch.cuda.synchronize()
     return res_us
 
 
@@ -2024,11 +2146,13 @@ def main(argv: list[str]) -> None:
     # the W8A8 dense path: QuantDense, quantize_activations ->
     # quant_matmul_pre
     t0 = time.time()
-    dense_counts, dense_dep = dense_path(gen)
+    dense_counts, dense_dep, dense_request = dense_path(gen)
     log(f"phase dense: ConvNeXt-B stage-2 and stage-3 MLPs through "
         f"QuantDense and quant_matmul_pre, {REQUESTS} requests of batch "
         f"{BATCH}, launches {dense_counts}; int8 vs bf16 MLP max/max|bf16| "
         f"{dense_dep:.3e}, in {time.time() - t0:.1f} s")
+    time_dense_path(dense_request, card)
+    del dense_request
     t0 = time.time()
     tot_qmm = time_qmm(gen, card)
     time_dispatch(gen, card)

@@ -84,8 +84,6 @@
 // of it was slower (each stage waits for every block's consumers); stage
 // 3 recomputes the first product per column block (twice).
 
-#include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
-
 #include <algorithm>
 
 #include "int8_common.cuh"
@@ -96,189 +94,9 @@ using namespace int8k;
 
 constexpr int kRows = 64;           // rows per block: one wgmma M tile
 constexpr int kChunk = 128;         // hidden columns per chunk
-constexpr int kSlice = 128;         // K bytes per weight tile (swizzle)
-constexpr int kTileBytes = 128 * kSlice;
-constexpr int kConsumers = 256;     // two warpgroups
+constexpr int kTileBytes = 128 * kSlice;   // a weight tile, 128 rows
 constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
 constexpr int kMaxStages = 8;
-constexpr size_t kMaxSmem = 227 * 1024;
-
-// ---- shared-memory addresses, mbarriers, TMA ----------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// byte offset of (row, k) in a tile of 128-byte rows under the 128-byte
-// swizzle that TMA writes and wgmma reads: the 16-byte chunk index xor
-// the row within its group of 8 (the tile 1024-byte aligned)
-__device__ __forceinline__ int swz(int row, int k) {
-  return row * 128 + ((((k >> 4) ^ row) & 7) << 4) + (k & 15);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// generic-proxy writes to shared memory (yq, hq) made visible to wgmma
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// the consumer warpgroups, not the producer warp
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
-// ---- wgmma -----------------------------------------------------------
-
-// K-major operand in 128-byte swizzled rows: start >> 4, leading offset
-// 16 B (unused by the swizzled K-major layout), stride 1024 B between
-// groups of 8 rows, layout type 1 (128-byte swizzle)
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving accesses of accumulator registers across
-// the asynchronous wgmma that writes them
-template <int R>
-__device__ __forceinline__ void fence_acc(int (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// d (64 x 64, s32) += A (64 x 32 int8) @ B (64 x 32 int8)^T
-__device__ __forceinline__ void wgmma_n64(int (&d)[32], uint64_t a,
-                                          uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// d (64 x 32, s32) += A (64 x 32 int8) @ B (32 x 32 int8)^T
-__device__ __forceinline__ void wgmma_n32(int (&d)[16], uint64_t a,
-                                          uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <int N, int R>
-__device__ __forceinline__ void wgmma_n(int (&d)[R], uint64_t a, uint64_t b) {
-  if constexpr (N == 64) {
-    wgmma_n64(d, a, b);
-  } else {
-    wgmma_n32(d, a, b);
-  }
-}
-
-// ---- the consumers' side of the ring ------------------------------------
-
-// Tiles arrive in the order the producer issues them.  A consumer keeps
-// one wgmma group in flight: after committing the group that reads a
-// tile it waits for the group before, and releases that one's stage.
-struct Ring {
-  uint32_t tiles;   // shared address of stage 0
-  uint32_t full;    // shared address of full[0]; empty[] follows
-  int stages;
-  int lane;
-  int it = 0;       // tiles acquired
-  int pend = -1;    // stage read by the group still in flight
-
-  __device__ __forceinline__ uint32_t acquire() {
-    const int s = it % stages;
-    mbar_wait(full + 8 * s, (it / stages) & 1);
-    return tiles + s * kTileBytes;
-  }
-  __device__ __forceinline__ void release() {
-    if (pend >= 0 && lane == 0) mbar_arrive(full + 8 * (stages + pend));
-    pend = -1;
-  }
-  // after the group that read the tile of acquire() was committed
-  __device__ __forceinline__ void retire() {
-    wgmma_wait<1>();
-    release();
-    pend = it % stages;
-    ++it;
-  }
-  __device__ __forceinline__ void drain() {
-    wgmma_wait<0>();
-    release();
-  }
-};
 
 // the hidden value before its activation, f32 steps in _mlp_core's order
 __device__ __forceinline__ float pre_act(int v, float xs, float s, float b) {
@@ -465,6 +283,7 @@ int8_mlp_kernel(const __grid_constant__ CUtensorMap w0map,
   ring.tiles = smem_u32(tiles);
   ring.full = smem_u32(bars);
   ring.stages = stages;
+  ring.stage_bytes = kTileBytes;
   ring.lane = lane;
   const uint32_t yq_a = smem_u32(yq);
 
@@ -479,7 +298,7 @@ int8_mlp_kernel(const __grid_constant__ CUtensorMap w0map,
       fence_acc(acc);
 #pragma unroll
       for (int kk = 0; kk < kSlice; kk += 32) {
-        wgmma_n<kH>(acc, desc(a + kk), desc(b + kk));
+        wgmma_tile<kH>(acc, desc(a + kk), desc(b + kk));
       }
       wgmma_commit();
       ring.retire();
@@ -601,7 +420,7 @@ int8_mlp_kernel(const __grid_constant__ CUtensorMap w0map,
           const uint32_t b = tile + (row % kTR) * kSlice;
 #pragma unroll
           for (int kk = 0; kk < kChunk; kk += 32) {
-            wgmma_n<kN2>(acc2[a], desc(h_a + kk), desc(b + kk));
+            wgmma_tile<kN2>(acc2[a], desc(h_a + kk), desc(b + kk));
           }
         }
       }
@@ -645,47 +464,6 @@ int8_mlp_kernel(const __grid_constant__ CUtensorMap w0map,
 
 // ---- host side --------------------------------------------------------
 
-// cuTensorMapEncodeTiled from the driver through the runtime, so that the
-// library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// a row-major int8 matrix (rows x cols) read in boxes of box_rows x 128
-// bytes, 128-byte swizzle, zeros beyond its edges
-bool weight_map(CUtensorMap* map, const void* w, int rows, int cols,
-                int box_rows) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kSlice),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w),
-                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // output columns per block: the largest of 512, 256, 64 that divides C
 int block_cols(int c) {
   if (c % 512 == 0) return 512;
@@ -720,8 +498,8 @@ int launch(const Args& a) {
       std::min<size_t>(kMaxStages, (kMaxSmem - fixed) / kTileBytes));
   const size_t bytes = fixed + static_cast<size_t>(stages) * kTileBytes;
   CUtensorMap w0map, w1map;
-  if (!weight_map(&w0map, a.w0t, a.hd, a.c, 128) ||
-      !weight_map(&w1map, a.w1t, a.c, a.hd, NB >= 128 ? 128 : NB)) {
+  if (!int8_map(&w0map, a.w0t, a.hd, a.c, 128) ||
+      !int8_map(&w1map, a.w1t, a.c, a.hd, NB >= 128 ? 128 : NB)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = int8_mlp_kernel<ACT, NB>;

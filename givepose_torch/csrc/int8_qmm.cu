@@ -1,4 +1,5 @@
-// W8A8 dense matmuls for Hopper, sm_90a.
+// W8A8 dense matmuls for Hopper, sm_90a: wgmma s8 from shared memory, the
+// int8 operands by TMA through an mbarrier ring, persistent blocks.
 //
 // Replaces the TPU kernels of givepose_tpu/ops/quant_matmul_pallas.py:
 //
@@ -19,8 +20,12 @@
 // (givepose_torch/ops/quant_matmul.py: quant_matmul_plain,
 // quant_matmul_pre_plain); rounding is half to even.  The int8 products
 // are exact int32 sums, so a kernel and its plain version can differ only
-// where tanhf or erff differs from PyTorch's.  M, N and K take any size:
-// the ragged edges are masked, and zeros past K add nothing.
+// where tanhf or erff differs from PyTorch's.  M and N take any size (the
+// ragged edges are masked, and TMA reads zeros past them); K must be a
+// multiple of 16 with every operand's base 16-byte aligned, TMA's rules,
+// which the wrapper meets by padding with zeros along K where a caller's
+// tensor does not (ops/quant_matmul.py qmm_pad: zeros add nothing to a
+// sum and leave a row's amax as it was).
 //
 // Bound.  2*M*N*K int8 ops at 1979 TOP/s against x, wt, out (and xs) read
 // or written once at 3.35 TB/s.  At the ConvNeXt-B MLP shapes of batch 32
@@ -29,23 +34,53 @@
 // bytes; the stage-3 ones (2048 x 1024 -> 4096, 2048 x 4096 -> 1024) ~25
 // MB, 7.5 us, bound by operations.  B5 reads x at half the bytes.
 //
-// Design.  One block of 8 warps per BM x 128 output tile (BM 128, or 64
-// when fewer than two tiles per SM would be in flight), K walked in steps
-// of 64.  The TPU kernel quantizes a row tile once and keeps it across its
-// sequential N grid; a CUDA grid has no order, so here every tile
-// quantizes its own rows: a first pass takes each row's amax over the
-// whole K row (a warp per row), and the K loop then quantizes each 64-wide
-// slice of x into shared memory as it goes.  So B4 reads its x rows twice
-// per column tile, N/128 times in all, from L2 (x is at most 17 MB at
-// these shapes, the L2 50 MB), instead of writing a quantized copy to
-// device memory.  Per K step the block stages the int8 A slice (BM x 64)
-// and B slice (128 x 64) in shared memory, 64-byte rows, which makes the
-// 16-byte fragment loads of a quarter-warp conflict-free; each warp runs
-// mma.sync m16n8k32 on a 32 x 64 (BM 128) or 32 x 32 (BM 64) sub-tile.
-// Within a 64-wide K step the K order is permuted the same way in A and B
-// (each lane loads 16 contiguous bytes of a row), which leaves the exact
-// sum unchanged.  No double buffering: several blocks per SM hide the
-// loads.  wgmma, TMA and a pipelined shared-memory ring are later work.
+// Design.  A block is four consumer warpgroups and a producer warpgroup
+// (640 threads, one block per SM; setmaxnreg gives the consumers 112
+// registers, the producer 24).  One producer thread streams the operands'
+// 128-byte K slices by TMA (cp.async.bulk.tensor, 128-byte swizzle, zeros
+// past every edge) into a ring of up to 8 stages, each with a full and an
+// empty mbarrier, in the order the consumers take them; the consumers run
+// wgmma m64nNk32 s8 on each stage as it lands, keep one group in flight
+// and release a stage when the group after the one that read it is
+// committed, and apply the epilogue to the accumulator fragments in
+// registers: the f32 steps, then 16-byte stores of bf16 rows (a transpose
+// of the 8-column blocks within each quad of lanes) or 8-byte f32 pairs.
+// The epilogue (GELU's tanhf and, in B5, five bf16 roundings an output)
+// and B4's quantization (an IEEE division a value) are bound by the
+// issue of their instructions and their latency, so four consumer
+// warpgroups (16 warps) take them where two took 1.3x as long.  The grid
+// is persistent: min(units, SMs) blocks, block b walking units b, b +
+// grid, ..., so the producer loads the next tile's slices while the
+// consumers finish one tile's epilogue.  A unit is `group` consecutive
+// column tiles of one row tile, `gpr` units a row tile; the wrapper picks
+// them (ops/quant_matmul.py qmm_plan, which a CPU test holds to cover
+// every output tile exactly once).
+//   B5: 128 x 128 tiles, one a unit; a stage is the xq slice (128 rows)
+//       and the wt slice (128 rows).  Two teams of two warpgroups (64 rows
+//       x 128 columns each) take the block's tiles in turn, and their
+//       products run in turn too (named barriers), so that one team's
+//       epilogue runs while the other's products and loads do.
+//   B4: 64 x 256 tiles, each warpgroup all 64 rows x 64 columns; the
+//       stages carry wt slices only.  As the TPU kernel quantizes a row
+//       tile once and keeps it across its sequential N grid, a block takes
+//       the row tile's amax over the whole K row (a warp a row), then
+//       quantizes each K slice of its rows into shared memory (64 swizzled
+//       128-byte rows, the layout wgmma reads; a 16-byte chunk a thread,
+//       loaded a slice ahead) just before its first product, and keeps
+//       every slice for the unit's other column tiles when they all fit
+//       beside the ring ("resident", K <= 2048); otherwise a ring of 4
+//       slots is quantized again per column tile (K 4096 at stage 3, where
+//       a unit is one column tile: no slice is quantized twice by one
+//       block).  So a row tile is quantized once per unit: gpr times in
+//       all (1 at stage 2; 4 at stage 3, whose 32 row tiles of 64 fill 128
+//       SMs only with 4 units each).  The amax of a row does not depend on
+//       the order of the max, so any split is exact.
+// Left (PERF.md, tools/qmm_breakdown.py): the epilogue's instructions
+// (GELU, stores) are the largest part at the fc1 shapes; B4 at stage 3
+// quantizes its rows 4 times over, which a cluster of the row tile's
+// blocks sharing the quantized slices would avoid.
+
+#include <algorithm>
 
 #include "int8_common.cuh"
 
@@ -53,15 +88,11 @@ namespace {
 
 using namespace int8k;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBN = 128;
-constexpr int kBK = 64;
-
-// flags: vector loads allowed (base 16-byte aligned, rows a multiple of
-// 16 bytes apart) for x, and for the int8 operands wt and xq
-constexpr int kVecX = 1;
-constexpr int kVecQ = 2;
+constexpr int kQConsumers = 512;            // four consumer warpgroups
+constexpr int kThreads = kQConsumers + 128;  // + the producer warpgroup
+constexpr int kARows = 64;                   // rows of a B4 tile
+constexpr int kASlot = kARows * kSlice;      // a quantized K slice of them
+constexpr int kMaxStages = 8;
 
 __device__ __forceinline__ float bf(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -93,15 +124,8 @@ __device__ __forceinline__ float act_pre(float yb) {
   return yb;
 }
 
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  const uint4 a = *reinterpret_cast<const uint4*>(p);
+// 8 values of x from 16 bytes (bf16) or 32 (f32) as f32
+__device__ __forceinline__ void unpack8(const uint4& a, float* v) {
   const uint32_t w[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -109,26 +133,48 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
     v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
+__device__ __forceinline__ void unpack8(const uint4& a, const uint4& b,
+                                        float* v) {
+  v[0] = __uint_as_float(a.x); v[1] = __uint_as_float(a.y);
+  v[2] = __uint_as_float(a.z); v[3] = __uint_as_float(a.w);
+  v[4] = __uint_as_float(b.x); v[5] = __uint_as_float(b.y);
+  v[6] = __uint_as_float(b.z); v[7] = __uint_as_float(b.w);
+}
 
-// amax of row r of x (K columns) by one warp
+// 16-byte words of 16 values of x: 2 (bf16) or 4 (f32)
+template <typename TX>
+constexpr int kWords = 16 * static_cast<int>(sizeof(TX)) / 16;
+
+// 16 values of x from their 16-byte words, as f32
+template <typename TX>
+__device__ __forceinline__ void unpack16(const uint4 (&u)[kWords<TX>],
+                                         float* v) {
+  if constexpr (sizeof(TX) == 2) {
+    unpack8(u[0], v);
+    unpack8(u[1], v + 8);
+  } else {
+    unpack8(u[0], u[1], v);
+    unpack8(u[2], u[3], v + 8);
+  }
+}
+
+// amax of a row of x (k columns, a multiple of 16, 16-byte aligned) by one
+// warp, 16 values a lane at a time, up to four loads in flight
 template <typename TX>
 __device__ __forceinline__ float row_amax(const TX* __restrict__ xr, int k,
-                                          int lane, bool vec) {
+                                          int lane) {
   float amax = 0.0f;
-  if (vec) {
-    for (int c = 8 * lane; c + 8 <= k; c += 256) {
-      float v[8];
-      load8(xr + c, v);
+#pragma unroll 4
+  for (int c = 16 * lane; c < k; c += 512) {
+    uint4 u[kWords<TX>];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[i]));
+    for (int w = 0; w < kWords<TX>; ++w) {
+      u[w] = __ldg(reinterpret_cast<const uint4*>(xr + c) + w);
     }
-    for (int c = (k & ~7) + lane; c < k; c += 32) {
-      amax = fmaxf(amax, fabsf(to_f32(xr[c])));
-    }
-  } else {
-    for (int c = lane; c < k; c += 32) {
-      amax = fmaxf(amax, fabsf(to_f32(xr[c])));
-    }
+    float v[16];
+    unpack16<TX>(u, v);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) amax = fmaxf(amax, fabsf(v[i]));
   }
   return warp_max(amax);
 }
@@ -140,215 +186,436 @@ __device__ __forceinline__ uint32_t pack4(const int8_t* q) {
          static_cast<uint32_t>(static_cast<uint8_t>(q[3])) << 24;
 }
 
-// 16 int8 values of a row at columns c..c+15 (zeros past k or for a row
-// out of range)
-__device__ __forceinline__ uint4 load_q16(const int8_t* __restrict__ row,
-                                          bool in_range, int c, int k,
-                                          bool vec) {
-  if (!in_range) return make_uint4(0u, 0u, 0u, 0u);
-  if (vec && c + 16 <= k) {
-    return __ldg(reinterpret_cast<const uint4*>(row + c));
-  }
+// v rounded half to even to an integer, for |v| < 2^22: the f32 sum with
+// 1.5 * 2^23 has a unit ulp, so the addition itself rounds, on the FMA
+// pipe; __float2int_rn would take the conversion pipe, which the
+// quantization's IEEE division also needs (its reciprocal)
+__device__ __forceinline__ int rint_small(float v) {
+  return __float_as_int(__fadd_rn(v, 12582912.0f)) - 0x4B400000;
+}
+
+// 16 values quantized with scale and packed: round(v / scale), the
+// quotient at most 127 in magnitude (scale = amax / 127)
+__device__ __forceinline__ uint4 quantize16(const float* v, float scale) {
   int8_t q[16];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) q[i] = c + i < k ? row[c + i] : 0;
+  for (int i = 0; i < 16; ++i) {
+    q[i] = static_cast<int8_t>(rint_small(__fdiv_rn(v[i], scale)));
+  }
   return make_uint4(pack4(q), pack4(q + 4), pack4(q + 8), pack4(q + 12));
 }
 
-// 16 values of x's row at columns c..c+15 quantized with scale
+// B4: a consumer thread's share of K slice kb (columns 128 kb ..) of the
+// tile's 64 rows of x: the 16 columns from 128 kb + 16 (tid % 8) of row
+// tid / 8, as raw 16-byte words (zeros past m and k).  Loaded one slice
+// ahead of their quantization, so that the loads' latency passes under
+// the products of the slice before.
 template <typename TX>
-__device__ __forceinline__ uint4 quantize16(const TX* __restrict__ row,
-                                            bool in_range, int c, int k,
-                                            float scale, bool vec) {
-  if (!in_range) return make_uint4(0u, 0u, 0u, 0u);
-  float v[16];
-  if (vec && c + 16 <= k) {
-    load8(row + c, v);
-    load8(row + c + 8, v + 8);
-  } else {
+struct XChunk {
+  uint4 u[kWords<TX>];
+
+  __device__ __forceinline__ void load(const TX* __restrict__ x,
+                                       long long row0, int m, int k, int kb,
+                                       int tid) {
+    const int c = kb * kSlice + (tid & 7) * 16;
+    const long long row = row0 + (tid >> 3);
+    const bool live = row < m && c < k;
+    const uint4* src = reinterpret_cast<const uint4*>(x + row * k + c);
 #pragma unroll
-    for (int i = 0; i < 16; ++i) v[i] = c + i < k ? to_f32(row[c + i]) : 0.0f;
+    for (int w = 0; w < kWords<TX>; ++w) {
+      u[w] = live ? __ldg(src + w) : make_uint4(0u, 0u, 0u, 0u);
+    }
   }
-  int8_t q[16];
+
+  // quantized with the row's scale into a slot of 64 swizzled 128-byte
+  // rows
+  __device__ __forceinline__ void store(int8_t* __restrict__ slot,
+                                        const float* xs_s, int tid) const {
+    const int r = tid >> 3;
+    float v[16];
+    unpack16<TX>(u, v);
+    const uint4 q = quantize16(v, xs_s[r]);
+    *reinterpret_cast<uint4*>(slot + swz(r, (tid & 7) * 16)) = q;
+  }
+};
+
+// one output's f32 epilogue in the plain versions' order: ((acc * xs) *
+// ws) + b, then the activation (B5: on the sum rounded to bf16)
+template <int ACT, bool PRE>
+__device__ __forceinline__ float epilogue(int acc, float xs, float w,
+                                          float b) {
+  const float v =
+      __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), xs), w), b);
+  return PRE ? act_pre<ACT>(bf(v)) : act_fn<ACT>(v);
+}
+
+__device__ __forceinline__ uint32_t pick(const uint32_t (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+// lane q of each quad (4 lanes) holds v[b], b = 0..3; returns lane 0..3's
+// v[q]: a transpose within the quad
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&v)[4],
+                                                int q) {
+  uint32_t r[4];
+  r[0] = pick(v, q);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) q[i] = quantize(v[i], scale);
-  return make_uint4(pack4(q), pack4(q + 4), pack4(q + 8), pack4(q + 12));
+  for (int s = 1; s < 4; ++s) {
+    r[s] = __shfl_xor_sync(0xffffffffu, pick(v, q ^ s), s);
+  }
+  return make_uint4(pick(r, q), pick(r, q ^ 1), pick(r, q ^ 2),
+                    pick(r, q ^ 3));
 }
 
+__device__ __forceinline__ uint32_t bf16x2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// row r's values y[b][e] at columns c0 + 8 b + 2 q + e (b < 4, q the lane
+// in its quad) into out (M, N): bf16 with N a multiple of 8 as one 16-byte
+// store of columns c0 + 8 q .. + 7 after a transpose within the quad (every
+// lane takes part), f32 with N even as 8-byte pairs, else one at a time
 template <typename TO>
-__device__ __forceinline__ void store2(TO* p, float a, float b);
-template <>
-__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-template <>
-__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
-                                                      float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// TX: x's type (int8_t when PRE); TO: output type; BM rows per tile
-template <typename TX, typename TO, int BM, int ACT, bool PRE>
-__global__ void __launch_bounds__(kThreads, 2)
-qmm_kernel(const TX* __restrict__ x, const float* __restrict__ xs_in,
-           const int8_t* __restrict__ wt, const float* __restrict__ ws,
-           const float* __restrict__ bias, TO* __restrict__ out, int m,
-           int n, int k, int flags) {
-  constexpr int WM = BM / 32;          // warps along M, 32 rows each
-  constexpr int WN = kWarps / WM;      // warps along N
-  constexpr int NT = kBN / WN / 8;     // 8-column mma tiles per warp
-  __shared__ __align__(16) int8_t as[BM * kBK];
-  __shared__ __align__(16) int8_t bs[kBN * kBK];
-  __shared__ float xs[BM];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long row0 = static_cast<long long>(blockIdx.x) * BM;
-  const int col0 = blockIdx.y * kBN;
-  const bool vec_x = flags & kVecX, vec_q = flags & kVecQ;
-
-  // 1. the tile's row scales (rows past m: 1, their values zeros)
-  if constexpr (PRE) {
-    for (int i = threadIdx.x; i < BM; i += kThreads) {
-      xs[i] = row0 + i < m ? xs_in[row0 + i] : 1.0f;
+__device__ __forceinline__ void store4(TO* __restrict__ out, long long r,
+                                       int c0, int m, int n, int q,
+                                       const float (&y)[4][2]) {
+  const long long o = r * n + c0;
+  if constexpr (sizeof(TO) == 2) {
+    if (n % 8 == 0) {
+      uint32_t v[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) v[b] = bf16x2(y[b][0], y[b][1]);
+      const uint4 t = quad_transpose(v, q);
+      if (r < m && c0 + 8 * q < n) {
+        *reinterpret_cast<uint4*>(out + o + 8 * q) = t;
+      }
+      return;
     }
   } else {
-    for (int i = warp; i < BM; i += kWarps) {
-      const long long r = row0 + i;
-      const float amax = r < m ? row_amax(x + r * k, k, lane, vec_x) : 0.0f;
-      if (lane == 0) xs[i] = r < m ? row_scale(amax) : 1.0f;
+    if (n % 2 == 0) {
+      if (r >= m) return;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if (c0 + 8 * b + 2 * q < n) {
+          *reinterpret_cast<float2*>(out + o + 8 * b + 2 * q) =
+              make_float2(y[b][0], y[b][1]);
+        }
+      }
+      return;
     }
+  }
+  if (r >= m) return;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (c0 + 8 * b + 2 * q + e < n) {
+        out[o + 8 * b + 2 * q + e] = from_f32<TO>(y[b][e]);
+      }
+    }
+  }
+}
+
+// a consumer warpgroup's output tile: this thread's rows ra and ra + 8,
+// their scales, and the warpgroup's first column
+struct Tile {
+  long long ra;
+  float xa, xb;
+  int col0;
+};
+
+// a warpgroup's WN columns of its tile, four 8-column blocks at a time:
+// the epilogue and the stores
+template <int WN, int ACT, bool PRE, typename TO>
+__device__ __forceinline__ void epilogue_tile(
+    const int (&acc)[WN / 2], const Tile& t, TO* __restrict__ out,
+    const float* __restrict__ ws, const float* __restrict__ bias, int m,
+    int n, int q) {
+#pragma unroll
+  for (int g = 0; g < WN / 32; ++g) {
+    float ya[4][2], yb[4][2];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = 4 * g + b;
+        const int col = t.col0 + 8 * j + 2 * q + e;
+        const int cc = col < n ? col : n - 1;
+        const float w = __ldg(ws + cc);
+        const float bb = bias != nullptr ? __ldg(bias + cc) : 0.0f;
+        ya[b][e] = epilogue<ACT, PRE>(acc[4 * j + e], t.xa, w, bb);
+        yb[b][e] = epilogue<ACT, PRE>(acc[4 * j + 2 + e], t.xb, w, bb);
+      }
+    }
+    store4<TO>(out, t.ra, t.col0 + 32 * g, m, n, q, ya);
+    store4<TO>(out, t.ra + 8, t.col0 + 32 * g, m, n, q, yb);
+  }
+}
+
+struct Params {
+  const void* x;        // B4: x (M, K); B5: unused (xq arrives by TMA)
+  const float* xs;      // B5: the row scales (M)
+  const float* ws;      // (N)
+  const float* bias;    // (N) or null
+  void* out;            // (M, N)
+  int m, n, k;          // k a multiple of 16
+  int group;            // column tiles of a unit
+  int gpr;              // units of a row tile
+  int stages;           // ring stages
+  int a_slots;          // B4: quantized K slices kept (all nk: resident)
+};
+
+// The two layouts of the four consumer warpgroups:
+//   B5: 128 x 128 tiles, two teams of two warpgroups (64 rows x 128
+//       columns each) that take the block's tiles in turn;
+//   B4: 64 x 256 tiles, the four warpgroups 64 x 64 each, sharing the
+//       tile's 64 quantized rows.
+template <bool PRE>
+__host__ __device__ constexpr int tile_rows() {
+  return PRE ? 128 : kARows;
+}
+template <bool PRE>
+__host__ __device__ constexpr int tile_cols() {
+  return PRE ? 128 : 256;
+}
+
+// a ring stage: B5's xq slice and the wt slice, 128 bytes a row
+template <bool PRE>
+__host__ __device__ constexpr int stage_bytes() {
+  return ((PRE ? tile_rows<PRE>() : 0) + tile_cols<PRE>()) * kSlice;
+}
+
+// named barriers 2 and 3, between B5's two teams
+__device__ __forceinline__ void team_wait(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kQConsumers) : "memory");
+}
+__device__ __forceinline__ void team_signal(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kQConsumers)
+               : "memory");
+}
+
+// TX: x's type (int8_t when PRE, read by TMA through amap); TO: output
+// type
+template <int ACT, bool PRE, typename TX, typename TO>
+__global__ void __launch_bounds__(kThreads, 1)
+qmm_kernel(const __grid_constant__ CUtensorMap amap,
+           const __grid_constant__ CUtensorMap bmap, const Params p) {
+  constexpr int BM = tile_rows<PRE>(), BN = tile_cols<PRE>();
+  constexpr int WN = PRE ? 128 : 64;          // columns of a warpgroup
+  // the consumer threads that read a stage: B5's team, or all of B4's
+  constexpr int USERS = PRE ? kQConsumers / 2 : kQConsumers;
+  constexpr int A_BYTES = PRE ? BM * kSlice : 0;
+  constexpr int STAGE = stage_bytes<PRE>();
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* tiles = base;
+  int8_t* aslots = reinterpret_cast<int8_t*>(tiles + p.stages * STAGE);
+  float* xs_s = reinterpret_cast<float*>(aslots + p.a_slots * kASlot);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(xs_s + BM);
+  // bars[0, stages): full; bars[stages, 2 stages): empty
+
+  const int m = p.m, n = p.n, k = p.k;
+  const int nk = (k + kSlice - 1) / kSlice;
+  const int ctiles = (n + BN - 1) / BN;
+  const int units = (m + BM - 1) / BM * p.gpr;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(smem_u32(bars + s), 1);
+      mbar_init(smem_u32(bars + p.stages + s), USERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  int acc[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[mt][j][v] = 0;
+  if (threadIdx.x >= kQConsumers) {
+    // producer: one thread loads every stage in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x != kQConsumers) return;
+    int it = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int rt = u / p.gpr, c0 = (u % p.gpr) * p.group;
+      const int c1 = min(c0 + p.group, ctiles);
+      for (int ct = c0; ct < c1; ++ct) {
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int s = it % p.stages;
+          const uint32_t full = smem_u32(bars + s);
+          const uint32_t dst = smem_u32(tiles + s * STAGE);
+          mbar_wait(smem_u32(bars + p.stages + s),
+                    ((it / p.stages) & 1) ^ 1);
+          mbar_expect_tx(full, STAGE);
+          if constexpr (PRE) {
+            tma_load(dst, &amap, kb * kSlice, rt * BM, full);
+          }
+          tma_load(dst + A_BYTES, &bmap, kb * kSlice, ct * BN, full);
+        }
+      }
     }
+    return;
   }
-  const int wm = warp % WM, wn = warp / WM;
 
-  // 2. K in steps of 64: stage int8 A and B slices, then the products
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    for (int idx = threadIdx.x; idx < BM * 4; idx += kThreads) {
-      const int i = idx >> 2, c = (idx & 3) * 16;
-      const long long r = row0 + i;
-      uint4 q;
+  // the registers the producer gave back, (96 - 24) x 128, spread over
+  // the 512 consumer threads: 96 + 18, rounded down to a multiple of 8
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 112;\n" ::: "memory");
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = tid >> 5, lane = tid & 31, q = lane & 3;
+  // B5's team; this thread's first row of the tile (the second is 8
+  // below), and the warpgroup's first row and column
+  const int team = PRE ? wg >> 1 : 0;
+  const int wrow = PRE ? 64 * (wg & 1) : 0, wcol = PRE ? 0 : WN * wg;
+  const int r_a = wrow + 16 * (warp & 3) + (lane >> 2);
+  const TX* x = static_cast<const TX*>(p.x);
+  TO* out = static_cast<TO*>(p.out);
+  const bool resident = p.a_slots >= nk;
+
+  Ring ring;
+  ring.tiles = smem_u32(tiles);
+  ring.full = smem_u32(bars);
+  ring.stages = p.stages;
+  ring.stage_bytes = STAGE;
+  ring.lane = lane;
+  ring.it = team * nk;          // a team's first tile is the block's team-th
+  XChunk<TX> chunk;
+
+  for (int u = blockIdx.x + team * gridDim.x; u < units;
+       u += (PRE ? 2 : 1) * gridDim.x) {
+    const int rt = u / p.gpr, c0 = (u % p.gpr) * p.group;
+    const int c1 = min(c0 + p.group, ctiles);
+    const long long row0 = static_cast<long long>(rt) * BM;
+    const long long ra = row0 + r_a;
+    float xa, xb;
+    if constexpr (PRE) {
+      xa = ra < m ? p.xs[ra] : 1.0f;
+      xb = ra + 8 < m ? p.xs[ra + 8] : 1.0f;
+    } else {
+      // the tile's row scales over whole K rows, a warp a row (after the
+      // last unit's products and quantization are done with xs_s and the
+      // slots)
+      consumer_sync<kQConsumers>();
+      for (int r = warp; r < kARows; r += kQConsumers / 32) {
+        const long long row = row0 + r;
+        const TX* xr = x + row * k;
+        const float amax = row < m ? row_amax(xr, k, lane) : 0.0f;
+        if (lane == 0) xs_s[r] = row < m ? row_scale(amax) : 1.0f;
+      }
+      consumer_sync<kQConsumers>();
+      xa = xs_s[r_a];
+      xb = xs_s[r_a + 8];
+    }
+    for (int ct = c0; ct < c1; ++ct) {
+      // B4 quantizes the rows on the unit's first column tile, or on every
+      // one when its K slices do not all stay (a ring of slots, reused
+      // only after every warpgroup drained the last tile's products)
+      const bool quant = !PRE && (ct == c0 || !resident);
+      if constexpr (!PRE) {
+        if (quant) {
+          if (ct != c0) consumer_sync<kQConsumers>();
+          chunk.load(x, row0, m, k, 0, tid);
+        }
+      }
+      int acc[WN / 2];
+#pragma unroll
+      for (int i = 0; i < WN / 2; ++i) acc[i] = 0;
+      // B5: the other team's products of the block's tile before this one
+      // are issued first, so that the teams' products run in turn and one
+      // team's epilogue while the other's products and loads
       if constexpr (PRE) {
-        q = load_q16(reinterpret_cast<const int8_t*>(x) + r * k, r < m,
-                     k0 + c, k, vec_q);
-      } else {
-        q = quantize16(x + r * k, r < m, k0 + c, k, xs[i], vec_x);
+        if (u != blockIdx.x) team_wait(2 + team);
       }
-      *reinterpret_cast<uint4*>(as + i * kBK + c) = q;
-    }
-    for (int idx = threadIdx.x; idx < kBN * 4; idx += kThreads) {
-      const int j = idx >> 2, c = (idx & 3) * 16;
-      const int col = col0 + j;
-      *reinterpret_cast<uint4*>(bs + j * kBK + c) = load_q16(
-          wt + static_cast<long long>(col) * k, col < n, k0 + c, k, vec_q);
-    }
-    __syncthreads();
-    uint4 a[2][2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int8_t* ar = as + (wm * 32 + mt * 16 + g) * kBK + 16 * t;
-      a[mt][0] = *reinterpret_cast<const uint4*>(ar);
-      a[mt][1] = *reinterpret_cast<const uint4*>(ar + 8 * kBK);
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const uint4 w = *reinterpret_cast<const uint4*>(
-          bs + (wn * (kBN / WN) + 8 * j + g) * kBK + 16 * t);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        mma_s8(acc[mt][j], a[mt][0].x, a[mt][1].x, a[mt][0].y, a[mt][1].y,
-               w.x, w.y);
-        mma_s8(acc[mt][j], a[mt][0].z, a[mt][1].z, a[mt][0].w, a[mt][1].w,
-               w.z, w.w);
-      }
-    }
-    __syncthreads();
-  }
-
-  // 3. epilogue: lane (g, t) holds rows g, g+8 and columns 2t, 2t+1 of
-  // each 16 x 8 tile
-  const bool pairs = n % 2 == 0;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = wm * 32 + mt * 16 + g + 8 * h;
-        const long long r = row0 + i;
-        const int col = col0 + wn * (kBN / WN) + 8 * j + 2 * t;
-        if (r >= m || col >= n) continue;
-        float y[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int cc = col + e < n ? col + e : col;
-          float v = __fmul_rn(
-              __fmul_rn(__int2float_rn(acc[mt][j][2 * h + e]), xs[i]),
-              ws[cc]);
-          v = __fadd_rn(v, bias != nullptr ? bias[cc] : 0.0f);
-          y[e] = PRE ? act_pre<ACT>(bf(v)) : act_fn<ACT>(v);
+      for (int kb = 0; kb < nk; ++kb) {
+        uint32_t a = 0;
+        if constexpr (!PRE) {
+          int8_t* slot = aslots + kb % p.a_slots * kASlot;
+          if (quant) {
+            chunk.store(slot, xs_s, tid);
+            fence_async_smem();
+            consumer_sync<kQConsumers>();
+            if (kb + 1 < nk) chunk.load(x, row0, m, k, kb + 1, tid);
+          }
+          a = smem_u32(slot);
         }
-        TO* o = out + r * n + col;
-        if (pairs) {
-          store2<TO>(o, y[0], y[1]);
-        } else {
-          o[0] = from_f32<TO>(y[0]);
-          if (col + 1 < n) o[1] = from_f32<TO>(y[1]);
+        const uint32_t stage = ring.acquire();
+        if constexpr (PRE) a = stage + wrow * kSlice;
+        const uint32_t b = stage + A_BYTES + wcol * kSlice;
+        wgmma_fence();
+        fence_acc(acc);
+#pragma unroll
+        for (int kk = 0; kk < kSlice; kk += 32) {
+          wgmma_tile<WN>(acc, desc(a + kk), desc(b + kk));
         }
+        wgmma_commit();
+        ring.retire();
       }
+      if constexpr (PRE) {
+        if (u + gridDim.x < units) team_signal(3 - team);
+        ring.it += nk;          // the other team's tile
+      }
+      ring.drain();
+      fence_acc(acc);
+      epilogue_tile<WN, ACT, PRE, TO>(acc, Tile{ra, xa, xb, ct * BN + wcol},
+                                      out, p.ws, p.bias, m, n, q);
     }
   }
 }
 
-template <typename TX, typename TO, int BM, int ACT, bool PRE>
-int launch(const void* x, const void* xs, const void* wt, const void* ws,
-           const void* bias, void* out, int m, int n, int k, int flags,
+// dynamic shared memory: the ring, B4's slots, the row scales, the
+// barriers and 1 KB of alignment slack (ops/quant_matmul.py qmm_smem)
+size_t smem_bytes(int stage, int stages, int a_slots, int bm) {
+  return static_cast<size_t>(stages) * stage +
+         static_cast<size_t>(a_slots) * kASlot + bm * sizeof(float) +
+         2 * kMaxStages * sizeof(uint64_t) + 1024;
+}
+
+template <int ACT, bool PRE, typename TX, typename TO>
+int launch(const Params& p, const void* xq, const void* wt, int blocks,
            cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((m + BM - 1) / BM),
-                  static_cast<unsigned>((n + kBN - 1) / kBN));
-  qmm_kernel<TX, TO, BM, ACT, PRE><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const float*>(xs),
-      static_cast<const int8_t*>(wt), static_cast<const float*>(ws),
-      static_cast<const float*>(bias), static_cast<TO*>(out), m, n, k,
-      flags);
+  const int nk = (p.k + kSlice - 1) / kSlice;
+  const size_t bytes = smem_bytes(stage_bytes<PRE>(), p.stages, p.a_slots,
+                                  tile_rows<PRE>());
+  // a ring of B4 slots needs 3: a slot is written again only after every
+  // warpgroup's products that read it are done
+  if (p.stages < 2 || p.stages > kMaxStages || bytes > kMaxSmem ||
+      p.group < 1 || p.gpr < 1 || blocks < 1 ||
+      (PRE ? p.a_slots != 0 || p.group != 1
+           : p.a_slots < std::min(nk, 3))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap amap{}, bmap{};
+  if (!int8_map(&bmap, wt, p.n, p.k, tile_cols<PRE>()) ||
+      (PRE && !int8_map(&amap, xq, p.m, p.k, tile_rows<PRE>()))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = qmm_kernel<ACT, PRE, TX, TO>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<blocks, kThreads, bytes, stream>>>(amap, bmap, p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// bn: the plan's tile width, which must be the kernel's
 template <typename TX, typename TO, bool PRE>
-int dispatch(int act, const void* x, const void* xs, const void* wt,
-             const void* ws, const void* bias, void* out, int m, int n,
-             int k, int flags, cudaStream_t s) {
-  // BM 128 when the grid holds at least two tiles per SM of an H100
-  const bool big = static_cast<long long>((m + 127) / 128) *
-                       ((n + kBN - 1) / kBN) >= 2 * 132;
-#define QMM_CASE(A)                                                        \
-  case A:                                                                  \
-    return big ? launch<TX, TO, 128, A, PRE>(x, xs, wt, ws, bias, out, m,  \
-                                             n, k, flags, s)               \
-               : launch<TX, TO, 64, A, PRE>(x, xs, wt, ws, bias, out, m,   \
-                                            n, k, flags, s);
+int dispatch(int act, const Params& p, const void* xq, const void* wt,
+             int bn, int blocks, cudaStream_t s) {
+  if (bn != tile_cols<PRE>()) return static_cast<int>(cudaErrorInvalidValue);
   switch (act) {
-    QMM_CASE(0)
-    QMM_CASE(1)
-    QMM_CASE(2)
+    case 0:
+      return launch<0, PRE, TX, TO>(p, xq, wt, blocks, s);
+    case 1:
+      return launch<1, PRE, TX, TO>(p, xq, wt, blocks, s);
+    case 2:
+      return launch<2, PRE, TX, TO>(p, xq, wt, blocks, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef QMM_CASE
 }
 
 bool bad_shape(int m, int n, int k) {
-  return m < 0 || n <= 0 || k <= 0 || (n + kBN - 1) / kBN > 65535;
+  return m < 0 || n <= 0 || k <= 0 || k % 16 != 0;
 }
 
 }  // namespace
@@ -356,41 +623,52 @@ bool bad_shape(int m, int n, int k) {
 // Plain-C entry points, loaded with ctypes.  Pointers: x (M, K) (bf16 if
 // x_bf16, else f32), wt (N, K) int8, ws (N) f32, bias (N) f32 or null, out
 // (M, N) (bf16 if out_bf16, else f32); int8_qmm_pre takes xq (M, K) int8
-// and xs (M) f32 instead of x.  act 0 none, 1 tanh GELU, 2 erf GELU;
-// flags 1: x may be read 16 bytes at a time, 2: wt and xq may.  Each
-// returns a CUDA error code: that of the launch (cudaGetLastError), or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// and xs (M) f32 instead of x.  K a multiple of 16 and x (xq) and wt
+// 16-byte aligned.  act 0 none, 1 tanh GELU, 2 erf GELU.  The plan
+// (ops/quant_matmul.py qmm_plan): bn columns a tile (B4 256, B5 128),
+// group column tiles a unit, gpr units a row tile, stages of the ring,
+// a_slots quantized K slices of B4 (0 for B5), blocks of the persistent
+// grid.  Each returns a
+// CUDA error code: that of the launch (cudaGetLastError), of raising the
+// shared-memory limit, or cudaErrorInvalidValue for arguments the kernel
+// does not take (or when the driver has no cuTensorMapEncodeTiled).
 extern "C" int int8_qmm(const void* x, int x_bf16, const void* wt,
                         const void* ws, const void* bias, void* out,
-                        int out_bf16, int m, int n, int k, int act,
-                        int flags, void* stream) {
+                        int out_bf16, int m, int n, int k, int act, int bn,
+                        int group, int gpr, int stages, int a_slots,
+                        int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(m, n, k)) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return static_cast<int>(cudaGetLastError());
+  const Params p{x,     nullptr, static_cast<const float*>(ws),
+                 static_cast<const float*>(bias), out, m, n, k, group, gpr,
+                 stages, a_slots};
   if (x_bf16) {
     return out_bf16 ? dispatch<__nv_bfloat16, __nv_bfloat16, false>(
-                          act, x, nullptr, wt, ws, bias, out, m, n, k, flags,
-                          s)
+                          act, p, nullptr, wt, bn, blocks, s)
                     : dispatch<__nv_bfloat16, float, false>(
-                          act, x, nullptr, wt, ws, bias, out, m, n, k, flags,
-                          s);
+                          act, p, nullptr, wt, bn, blocks, s);
   }
-  return out_bf16 ? dispatch<float, __nv_bfloat16, false>(
-                        act, x, nullptr, wt, ws, bias, out, m, n, k, flags, s)
-                  : dispatch<float, float, false>(act, x, nullptr, wt, ws,
-                                                  bias, out, m, n, k, flags,
-                                                  s);
+  return out_bf16 ? dispatch<float, __nv_bfloat16, false>(act, p, nullptr,
+                                                          wt, bn, blocks, s)
+                  : dispatch<float, float, false>(act, p, nullptr, wt, bn,
+                                                  blocks, s);
 }
 
 extern "C" int int8_qmm_pre(const void* xq, const void* xs, const void* wt,
                             const void* ws, const void* bias, void* out,
                             int out_bf16, int m, int n, int k, int act,
-                            int flags, void* stream) {
+                            int bn, int group, int gpr, int stages,
+                            int a_slots, int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(m, n, k)) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return static_cast<int>(cudaGetLastError());
-  return out_bf16 ? dispatch<int8_t, __nv_bfloat16, true>(
-                        act, xq, xs, wt, ws, bias, out, m, n, k, flags, s)
-                  : dispatch<int8_t, float, true>(act, xq, xs, wt, ws, bias,
-                                                  out, m, n, k, flags, s);
+  const Params p{nullptr, static_cast<const float*>(xs),
+                 static_cast<const float*>(ws),
+                 static_cast<const float*>(bias), out, m, n, k, group, gpr,
+                 stages, a_slots};
+  return out_bf16 ? dispatch<int8_t, __nv_bfloat16, true>(act, p, xq, wt, bn,
+                                                          blocks, s)
+                  : dispatch<int8_t, float, true>(act, p, xq, wt, bn, blocks,
+                                                  s);
 }

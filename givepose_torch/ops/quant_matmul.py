@@ -31,6 +31,8 @@ on every call, as the JAX package does in-graph.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -44,9 +46,16 @@ GELU_C = float(np.sqrt(2.0 / np.pi).astype(np.float32))
 GELU_K = 0.044715
 # np.sqrt(2.0) as JAX takes it: a strongly typed scalar, f32
 SQRT2 = float(np.float32(np.sqrt(2.0)))
-# vector-load flags of csrc/int8_qmm.cu
-_VEC_X, _VEC_Q = 1, 2
+# csrc/int8_qmm.cu's tiling: K bytes of a TMA box (and of a row of a
+# quantized B4 slot), the K multiple its operands take (16-byte rows),
+# rows of a B4 tile, ring stages, shared memory a block may take
+QMM_SLICE = 128
+QMM_K_MULTIPLE = 16
+QMM_B4_ROWS = 64
+QMM_MAX_STAGES = 8
+QMM_SMEM = 227 * 1024
 _fns: dict[str, object] = {}
+_sms: dict[int, int] = {}
 
 
 def _div(v: torch.Tensor, d: float) -> torch.Tensor:
@@ -283,8 +292,147 @@ def mlp_int8_cuda(y, residual, w0t, s0, b0, w1t, s1, b1, act="gelu_tanh",
 mlp_int8_cuda.launches = 0
 
 
-def _aligned(*tensors: torch.Tensor) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in tensors)
+@dataclasses.dataclass(frozen=True)
+class QmmPlan:
+    """How ``csrc/int8_qmm.cu`` cuts an (M, N) output: tiles of ``bm``
+    rows and ``bn`` columns; a unit is ``group`` consecutive column tiles
+    of one row tile, ``gpr`` units a row tile; ``blocks`` persistent
+    blocks, block b taking units b, b + blocks, ...; ``stages`` ring
+    stages; B4's ``a_slots`` quantized K slices of its rows (every slice:
+    resident, quantized once per unit)."""
+
+    bm: int
+    bn: int
+    group: int
+    gpr: int
+    stages: int
+    a_slots: int
+    blocks: int
+
+    def units(self, m: int) -> int:
+        return -(-m // self.bm) * self.gpr
+
+    def tiles(self, m: int, n: int, block: int) -> list[tuple[int, int]]:
+        """(row tile, column tile) of every output tile ``block`` computes,
+        in the kernel's order."""
+        ctiles = -(-n // self.bn)
+        out = []
+        for u in range(block, self.units(m), self.blocks):
+            c0 = u % self.gpr * self.group
+            out += [(u // self.gpr, ct)
+                    for ct in range(c0, min(c0 + self.group, ctiles))]
+        return out
+
+
+def _stage_bytes(plan: QmmPlan, pre: bool) -> int:
+    """A ring stage: B5's xq slice and the wt slice, 128 bytes a row."""
+    return ((plan.bm if pre else 0) + plan.bn) * QMM_SLICE
+
+
+def qmm_smem(plan: QmmPlan, pre: bool) -> int:
+    """Dynamic shared memory of a block (``smem_bytes`` in the source): the
+    ring, B4's slots, the row scales, the barriers, 1 KB of alignment."""
+    return (plan.stages * _stage_bytes(plan, pre)
+            + plan.a_slots * QMM_B4_ROWS * QMM_SLICE + 4 * plan.bm
+            + 16 * QMM_MAX_STAGES + 1024)
+
+
+@functools.lru_cache(maxsize=256)
+def qmm_plan(m: int, n: int, k: int, pre: bool, sms: int) -> QmmPlan:
+    """The tiling of B5 (``pre``) or B4 on an (M, K) x (K, N) product (K
+    a multiple of 16) for a card of ``sms`` SMs.  B5: 128 x 128 tiles, one
+    a unit.  B4: 64 x 256 tiles; a row tile's column tiles split into as
+    few groups (units) as fill the card, since each unit quantizes its
+    rows again; every K slice resident when they fit beside a ring of 3
+    stages and a unit has more than one column tile, else a ring of 4
+    slots.  Stages: as many as fit (at most 8)."""
+    ceil = lambda a, b: -(-a // b)  # noqa: E731
+    nk = ceil(k, QMM_SLICE)
+    if pre:
+        bm, bn = 128, 128
+        group, gpr, a_slots = 1, ceil(n, bn), 0
+    else:
+        bm, bn = QMM_B4_ROWS, 256
+        ctiles = ceil(n, bn)
+        group = ceil(ctiles, min(ctiles, max(1, sms // ceil(m, bm))))
+        gpr = ceil(ctiles, group)
+        a_slots = min(nk, 4)
+        whole = QmmPlan(bm, bn, group, gpr, 3, nk, 1)
+        if group > 1 and qmm_smem(whole, pre) <= QMM_SMEM:
+            a_slots = nk
+    plan = QmmPlan(bm, bn, group, gpr, 0, a_slots, 1)
+    stages = min(QMM_MAX_STAGES, (QMM_SMEM - qmm_smem(plan, pre))
+                 // _stage_bytes(plan, pre))
+    return dataclasses.replace(plan, stages=stages,
+                               blocks=max(1, min(plan.units(m), sms)))
+
+
+def _padded_k(k: int) -> int:
+    return -(-k // QMM_K_MULTIPLE) * QMM_K_MULTIPLE
+
+
+def qmm_pad(t: torch.Tensor) -> torch.Tensor:
+    """An (R, K) operand of B4 or B5 as the kernels read it: K a multiple
+    of 16 and the base 16-byte aligned (TMA's rules for xq and wt, and
+    B4's 16-byte loads of x).  Otherwise a copy padded with zeros along K,
+    which adds nothing to an int32 sum and leaves a row's amax as it
+    was."""
+    rows, k = t.shape
+    kp = _padded_k(k)
+    if kp == k and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros(rows, kp)
+    out[:, :k] = t
+    return out
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sms[index]
+
+
+def _qmm_argtypes(pre: bool) -> list:
+    head = ([ctypes.c_void_p] * 6 if pre
+            else [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4)
+    return head + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+
+
+def bind_qmm(fn, pre: bool):
+    """Set the ctypes signature of ``int8_qmm_pre`` (``pre``) or
+    ``int8_qmm`` on ``fn`` (an entry point of some build of
+    ``csrc/int8_qmm.cu``) and return it."""
+    fn.argtypes = _qmm_argtypes(pre)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def qmm_call_args(x, xs, wt, ws, bias, out, act: str, pre: bool) -> tuple:
+    """The arguments of a call of B5 (``pre``: x is xq, xs its row scales)
+    or B4 on operands that meet ``qmm_pad`` already, with the plan of
+    ``qmm_plan`` for x's card, on its current stream."""
+    m, k = x.shape
+    n = wt.shape[0]
+    plan = qmm_plan(m, n, k, pre, _sm_count(x.device))
+    head = ((x.data_ptr(), xs.data_ptr()) if pre
+            else (x.data_ptr(), int(x.dtype == torch.bfloat16)))
+    return head + (
+        wt.data_ptr(), ws.data_ptr(), None if bias is None else
+        bias.data_ptr(), out.data_ptr(), int(out.dtype == torch.bfloat16),
+        m, n, k, ACTS[act], plan.bn, plan.group, plan.gpr, plan.stages,
+        plan.a_slots, plan.blocks,
+        torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _qmm_launch(name: str, pre: bool, x, xs, wt, ws, bias, out, act):
+    fn = _kernel(QMM_SOURCE, name, _qmm_argtypes(pre))
+    with torch.cuda.device(x.device):
+        err = fn(*qmm_call_args(x, xs, wt, ws, bias, out, act, pre))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def _qmm_args(x, wt, ws, bias, act, out_dtype, caller):
@@ -304,7 +452,7 @@ def _qmm_args(x, wt, ws, bias, act, out_dtype, caller):
     (m, k), n = x.shape, wt.shape[0]
     if n == 0 or k == 0:
         raise ValueError(f"N={n} and K={k} must be positive")
-    if max(m, n) * k >= 2 ** 31 or m * n >= 2 ** 31:
+    if max(m, n) * _padded_k(k) >= 2 ** 31 or m * n >= 2 ** 31:
         raise ValueError("tensor too large for the kernel's 32-bit shapes")
     expect = {"wt": (wt, torch.int8, (n, k)),
               "ws": (ws, torch.float32, (n,))}
@@ -320,27 +468,14 @@ def qmm_cuda(x, wt, ws, bias=None, act: str = "none",
     the kernel; wt (N, K) int8, the quantized weights transposed; ws (N,)
     f32; bias (N,) f32 or None; all contiguous on one CUDA device.
     Returns (M, N) in ``out_dtype`` (bf16 or f32)."""
-    m, n, k = _qmm_args(x, wt, ws, bias, act, out_dtype, "qmm_cuda")
+    m, n, _ = _qmm_args(x, wt, ws, bias, act, out_dtype, "qmm_cuda")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"x must be bf16 or f32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    flags = ((_VEC_X if _aligned(x) and k * x.element_size() % 16 == 0
-              else 0)
-             | (_VEC_Q if _aligned(wt) and k % 16 == 0 else 0))
-    fn = _kernel(QMM_SOURCE, "int8_qmm",
-                 [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                 wt.data_ptr(), ws.data_ptr(),
-                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                 int(out_dtype == torch.bfloat16), m, n, k, ACTS[act], flags,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"int8_qmm launch failed: cudaError {err}")
+    _qmm_launch("int8_qmm", False, qmm_pad(x), None, qmm_pad(wt), ws, bias,
+                out, act)
     qmm_cuda.launches += 1
     return out
 
@@ -357,17 +492,8 @@ def qmm_pre_cuda(xq, xs, wt, ws, bias=None, act: str = "none",
     _check({"xq": (xq, torch.int8, (m, k)),
             "xs": (xs, torch.float32, (m,))}, xq.device)
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
-    flags = _VEC_Q if _aligned(xq, wt) and k % 16 == 0 else 0
-    fn = _kernel(QMM_SOURCE, "int8_qmm_pre", [ctypes.c_void_p] * 6
-                 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream(xq.device).cuda_stream
-        err = fn(xq.data_ptr(), xs.data_ptr(), wt.data_ptr(), ws.data_ptr(),
-                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                 int(out_dtype == torch.bfloat16), m, n, k, ACTS[act], flags,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"int8_qmm_pre launch failed: cudaError {err}")
+    _qmm_launch("int8_qmm_pre", True, qmm_pad(xq), xs, qmm_pad(wt), ws,
+                bias, out, act)
     qmm_pre_cuda.launches += 1
     return out
 

@@ -185,7 +185,7 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "sys.path.insert(0, 'tools')\n"
         "import train_path_spread, mlp_breakdown, dcnv3_breakdown\n"
-        "import reduction_probe\n"
+        "import reduction_probe, qmm_breakdown\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'givepose_tpu')]\n"
         "assert not bad, bad\n"

@@ -253,6 +253,88 @@ def test_qmm_pre_matches_plain(cuda, act, dtype, m, k, n):
     assert d.mean().item() <= mean_bar, (d.mean().item(), mean_bar)
 
 
+# edges of the wgmma design's tiling (ops/quant_matmul.py qmm_plan: B4 64
+# x 256 tiles, B5 128 x 128): M 37 short of batch 32's stage-2 rows and M
+# below one tile; N not a multiple of a tile (48, 130); K through the pad
+# rule (520, 100, odd); K 4096, whose quantized rows do not all stay in
+# B4's shared memory (a ring of slots); more units than blocks of the
+# persistent grid (B4 at M 9000; B5 at M 8155, 8 or 7 tiles a block, and
+# at M 9000, 3 or 2: an odd count for a block's two B5 teams)
+QMM_EDGE_SHAPES = [(8192 - 37, 512, 2048), (40, 512, 2048), (300, 256, 48),
+                   (200, 520, 130), (33, 100, 250), (5, 37, 19),
+                   (256, 4096, 1024), (9000, 256, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["none", "gelu_tanh", "gelu_exact"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", QMM_EDGE_SHAPES)
+def test_qmm_tiling_edges(cuda, act, dtype, m, k, n):
+    """B4 and B5 against their plain versions at the tiling's edges, at
+    the bars of ``test_qmm_matches_plain``."""
+    from givepose_torch.ops.quant_matmul import (qmm_cuda, qmm_flip,
+                                                 qmm_plan, qmm_pre_cuda,
+                                                 quant_matmul_plain,
+                                                 quant_matmul_pre_plain,
+                                                 quantize_activations)
+
+    x, w, b = qmm_inputs(3 * m + k + n, m, k, n, cuda)
+    x = x.to(dtype)
+    xq, xs = quantize_activations(x)
+    wq, ws = quantize_weights(w)
+    wt = wq.t().contiguous()
+    qmm_cuda.launches = qmm_pre_cuda.launches = 0
+    runs = ((qmm_cuda(x, wt, ws, b, act, dtype),
+             quant_matmul_plain(x, wq, ws, b, act, dtype),
+             qmm_flip(x, wq, ws)),
+            (qmm_pre_cuda(xq, xs.reshape(-1), wt, ws, b, act, dtype),
+             quant_matmul_pre_plain(xq, xs, wq, ws, b, act, dtype), 0.0))
+    torch.cuda.synchronize()
+    assert qmm_cuda.launches == qmm_pre_cuda.launches == 1
+    for out, ref, flip in runs:
+        assert out.dtype == dtype and out.shape == (m, n)
+        d = (out.float() - ref.float()).abs()
+        max_bar, mean_bar = qmm_bars(ref, flip)
+        assert d.max().item() <= max_bar, (d.max().item(), max_bar)
+        assert d.mean().item() <= mean_bar, (d.mean().item(), mean_bar)
+    if m >= 8000:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        kp = -(-k // 16) * 16
+        plans = [qmm_plan(m, n, kp, pre, sms) for pre in (False, True)]
+        assert any(p.units(m) > p.blocks for p in plans)
+
+
+@pytest.mark.cuda
+def test_qmm_takes_misaligned_views(cuda):
+    """Operands that are contiguous views at an odd offset (x, xq and wt
+    below the 16 bytes a TMA tensor map and B4's loads need, ws and bias
+    below 8) give what the aligned tensors give."""
+    from givepose_torch.ops.quant_matmul import (qmm_cuda, qmm_pre_cuda,
+                                                 quantize_activations)
+
+    x, w, b = qmm_inputs(11, 100, 256, 384, cuda)
+    xq, xs = quantize_activations(x)
+    wq, ws = quantize_weights(w)
+    wt = wq.t().contiguous()
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    xb = x.to(torch.bfloat16)
+    odd = [shifted(t) for t in (xb, xq, wt, ws, b)]
+    assert all(t.data_ptr() % 8 for t in odd)
+    for act in ("none", "gelu_tanh"):
+        assert torch.equal(qmm_cuda(odd[0], odd[2], odd[3], odd[4], act),
+                           qmm_cuda(xb, wt, ws, b, act))
+        assert torch.equal(
+            qmm_pre_cuda(odd[1], xs.reshape(-1), odd[2], odd[3], odd[4],
+                         act),
+            qmm_pre_cuda(xq, xs.reshape(-1), wt, ws, b, act))
+
+
 @pytest.mark.cuda
 def test_qmm_rejects(cuda):
     from givepose_torch.ops.quant_matmul import qmm_cuda, qmm_pre_cuda

@@ -37,8 +37,10 @@ from givepose_torch.models.convert_from_flax import flax_to_state_dict
 from givepose_torch.models.layers import Linear
 from givepose_torch.models.quant import (QuantDense, make_dense,
                                          quant_matmul_w8a8)
-from givepose_torch.ops.quant_matmul import (qmm_cuda, qmm_flip,
-                                             qmm_pre_cuda, quant_dense,
+from givepose_torch.ops.quant_matmul import (QMM_MAX_STAGES, QMM_SMEM,
+                                             qmm_cuda, qmm_flip, qmm_pad,
+                                             qmm_plan, qmm_pre_cuda,
+                                             qmm_smem, quant_dense,
                                              quant_matmul_plain,
                                              quant_matmul_pre,
                                              quant_matmul_pre_plain,
@@ -234,3 +236,97 @@ def test_dispatch_on_cpu():
     with pytest.raises(ValueError):
         quant_dense(*args, act="relu")
     assert qmm_cuda.launches == qmm_pre_cuda.launches == 0
+
+
+# K through the kernels' pad rule: K 100 (a multiple of 4 only), 37 (odd),
+# 520 (of 8 only)
+PAD_SHAPES = [(33, 100, 25), (5, 37, 19), (20, 520, 13)]
+
+
+def padded(t):
+    """An (R, K) tensor through ``qmm_pad``; the padded columns zero."""
+    p = qmm_pad(t)
+    assert p.shape[1] % 16 == 0 and p.shape[1] - t.shape[1] < 16
+    assert torch.equal(p[:, :t.shape[1]], t)
+    assert not p[:, t.shape[1]:].any()
+    return p
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("m,k,n", PAD_SHAPES)
+def test_pad_rule_is_bitwise(act, m, k, n):
+    """Each plain version on operands padded with zeros along K, as the
+    wrappers hand them to the kernels, equals its result on the unpadded
+    ones bitwise (zeros add nothing to the int32 sum and leave each row's
+    amax), and the TPU kernel in interpret mode as
+    ``test_plain_matches_qmm_kernel`` and
+    ``test_pre_plain_matches_qmm_pre_kernel`` hold the unpadded one."""
+    x, w, b = operands(5 * m + k, m, k, n)
+    wq, ws = quantize_weights(t(w))
+    wq_p = padded(wq.t().contiguous()).t()
+    out = quant_matmul_plain(t(x), wq, ws, t(b), act, torch.float32)
+    out_p = quant_matmul_plain(padded(t(x)), wq_p, ws, t(b), act,
+                               torch.float32)
+    assert torch.equal(out_p, out)
+    jq, jws = jax_quantize_weights(jnp.asarray(w))
+    ref = np.asarray(quant_matmul_pallas(
+        jnp.asarray(x), jq, jws, bias=jnp.asarray(b), act=act,
+        out_dtype=jnp.float32, interpret=True))
+    np.testing.assert_allclose(out_p.numpy(), ref, rtol=0, atol=2e-5)
+    xq, xs = quantize_activations(t(x))
+    pre = quant_matmul_pre_plain(xq, xs, wq, ws, t(b), act)
+    pre_p = quant_matmul_pre_plain(padded(xq), xs, wq_p, ws, t(b), act)
+    assert torch.equal(pre_p, pre)
+    jxq, jxs = jax_quantize_activations(jnp.asarray(x))
+    ref16 = np.asarray(quant_matmul_pre_pallas(
+        jxq, jxs, jq, jws, bias=jnp.asarray(b), act=act,
+        out_dtype=jnp.bfloat16, interpret=True), np.float32)
+    d = np.abs(pre_p.float().numpy() - ref16)
+    assert (d <= 2 ** -7 * np.maximum(np.abs(ref16),
+                                      np.abs(pre_p.float().numpy()))).all()
+
+
+def test_pad_keeps_aligned_operands():
+    """An operand with K a multiple of 16 at an aligned base is handed on
+    as it is; a view at an odd offset is copied."""
+    a = torch.zeros(8, 64, dtype=torch.int8)
+    assert qmm_pad(a) is a
+    buf = torch.zeros(8 * 64 + 1, dtype=torch.int8)
+    view = buf[1:].view(8, 64)
+    assert view.data_ptr() % 16 and qmm_pad(view).data_ptr() % 16 == 0
+    assert torch.equal(qmm_pad(view), view)
+
+
+# (M, N, K, SMs): the four batch-32 ConvNeXt-B MLP matmuls, the tiling's
+# edges (ragged M and N, M below one tile, K 4096, more units than blocks),
+# and a card of fewer SMs
+PLAN_CASES = [(8192, 2048, 512, 132), (8192, 512, 2048, 132),
+              (2048, 4096, 1024, 132), (2048, 1024, 4096, 132),
+              (8192 - 37, 2048, 512, 132), (40, 2048, 512, 132),
+              (77, 48, 96, 132), (5, 19, 48, 132), (200, 130, 528, 132),
+              (9000, 512, 256, 132), (256, 1024, 4096, 132),
+              (1000, 3000, 2048, 114), (3, 5000, 16, 7)]
+
+
+@pytest.mark.parametrize("pre", [False, True])
+@pytest.mark.parametrize("m,n,k,sms", PLAN_CASES)
+def test_plan_fits_and_covers_every_tile_once(pre, m, n, k, sms):
+    """The persistent blocks of ``qmm_plan`` compute every output tile
+    exactly once, in shared memory a block may take, with a ring of at
+    least 2 stages and B4's slots either every K slice or a ring of at
+    least 3 (a slot is written again only after both warpgroups' products
+    that read it are done)."""
+    plan = qmm_plan(m, n, k, pre, sms)
+    seen = [tile for block in range(plan.blocks)
+            for tile in plan.tiles(m, n, block)]
+    every = [(r, c) for r in range(-(-m // plan.bm))
+             for c in range(-(-n // plan.bn))]
+    assert sorted(seen) == every
+    assert 1 <= plan.blocks <= min(sms, plan.units(m))
+    assert qmm_smem(plan, pre) <= QMM_SMEM
+    assert 2 <= plan.stages <= QMM_MAX_STAGES
+    nk = -(-k // 128)
+    if pre:
+        assert plan.a_slots == 0 and plan.group == 1 and plan.bm == 128
+    else:
+        assert plan.a_slots >= min(nk, 3) and plan.bm == 64

@@ -32,8 +32,8 @@ NO_EPILOGUE = [("    if (cb < hd) {\n      float m1a",
                 "    if (false) {\n      float m1a"),
                ("      if (cb < hd) {\n        const float2 sc",
                 "      if (false) {\n        const float2 sc")]
-NO_MMA = [("        wgmma_n<kH>(acc, desc(a + kk), desc(b + kk));", ""),
-          ("            wgmma_n<kN2>(acc2[a], desc(h_a + kk), "
+NO_MMA = [("        wgmma_tile<kH>(acc, desc(a + kk), desc(b + kk));", ""),
+          ("            wgmma_tile<kN2>(acc2[a], desc(h_a + kk), "
            "desc(b + kk));", "")]
 # pass 1 takes the activation of every value (no amax shortcut)
 NO_SHORTCUT = [("    if (m1 >= kActFloor && m2 <= m1 * kNear) "
