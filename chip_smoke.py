@@ -18,7 +18,9 @@ Phases, each of which exits non-zero when it fails:
      said): the MAPEncoder shapes, offsets that the clamp mostly holds,
      offsets exactly on the window's bound, a ragged last row tile,
      column tiles, and for the backward the tie case (window 1, zero
-     offsets, where d_offset is half the unclamped one);
+     offsets, where d_offset is half the unclamped one); the forward at
+     its default plan and at the TPU sweep's plans ``mono`` and
+     ``chunk2``;
    - the fused int8 ConvNeXt MLP at the stage-2 and stage-3 shapes of
      batch 32, with and without its LayerNorm prologue, in bf16 and f32,
      and at the edges of its tiling: M 37 short of a multiple of its 64-row
@@ -31,6 +33,10 @@ Phases, each of which exits non-zero when it fails:
      than persistent blocks), x and out in bf16 and in f32, for each
      activation, and on views at an odd offset; and ``QuantDense`` loaded
      from a bf16 ``nn.Linear``'s state dict;
+   then the TPU sweep's path (``tools/win_kernel_split.py``) at its
+   shape, batch 128 at the first MAPEncoder layer: the windowed forward
+   at the plans ``mono``, ``chunk2`` and ``chunk4``, counted, held against
+   the plain version and timed beside its default plan;
 4. serve batch-32 requests through full-width ConvNeXt-B PoseNet (bf16,
    seeded random weights, DCNv3 offset and mask projections perturbed so
    that samples land off the grid), first under the default ModelConfig,
@@ -66,8 +72,8 @@ Phases, each of which exits non-zero when it fails:
    the bf16 ``F.linear`` and ``torch._int_mm`` on the same operands and
    the earlier mma.sync design's time), the PoseNet forward of both
    configurations, eager and from its artifact, and the train step of both
-   with CUDA events, break the forwards' and the default
-   train step's device time down by op with torch.profiler, and the
+   with CUDA events, break the forwards' and both train steps' device
+   time down by op with torch.profiler, and the
    default train step's wall and device time down by part (forward,
    gradients, optimizer).
 
@@ -356,10 +362,17 @@ def kernel_wrappers() -> dict:
 def reset_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    kernel_wrappers()["dcnv3_win_fwd"].plan_launches.clear()
 
 
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+    """Each wrapper's launches, and as ``win_kernel_split`` those of the
+    windowed forward at the sweep's plans (any but its default)."""
+    counts = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    plans = kernel_wrappers()["dcnv3_win_fwd"].plan_launches
+    counts["win_kernel_split"] = sum(v for k, v in plans.items()
+                                     if k != "default")
+    return counts
 
 
 def check_counts(counts: dict, expect: dict, what: str) -> None:
@@ -1140,6 +1153,14 @@ def clamp_share(off, h, w, stride, pad, dilation, group, window) -> float:
     return held.float().mean().item()
 
 
+# the TPU sweep of the windowed kernel (benchmarks/bench_win_kernel_split
+# .py main): batch 128, the first MAPEncoder layer; its variants ``mono``
+# (every tile of an image in one step) and ``chunkN`` (N tiles a step)
+# are plans of the windowed forward kernel here
+SWEEP_BATCH = 128
+SWEEP_PLANS = ("mono", "chunk2", "chunk4")
+
+
 def win_cases() -> list:
     """The windowed kernels' checks: the MAPEncoder shapes at batch 8,
     then WIN_EDGE_CASES."""
@@ -1147,16 +1168,17 @@ def win_cases() -> list:
              for name, s in MAIN_LAYERS] + WIN_EDGE_CASES)
 
 
-def check_win_kernel(gen) -> float:
+def check_win_kernel(gen) -> tuple[float, float]:
     """Phase 3, windowed forward against the plain windowed dcnv3_core,
-    x in bf16 and f32, within KERNEL_BAR * max|ref|; returns the largest
-    max abs error."""
+    x in bf16 and f32, within KERNEL_BAR * max|ref|, at the kernel's
+    default plan and at the sweep's plans ``mono`` and ``chunk2``; returns
+    the largest max abs error at the default plan and at the others."""
     import torch
 
     from givepose_torch.ops.dcnv3 import dcnv3_core
     from givepose_torch.ops.dcnv3_cuda import dcnv3_win_cuda
 
-    worst = 0.0
+    worst = {"default": 0.0, "sweep": 0.0}
     for (name, n, h, w, group, gc, stride, pad, dil, mult, window,
          bound) in win_cases():
         x, off, m = dcnv3_inputs(gen, n, h, w, group, gc, stride, pad, dil,
@@ -1168,20 +1190,76 @@ def check_win_kernel(gen) -> float:
                   window=window)
         for dtype in (torch.bfloat16, torch.float32):
             xd = x.to(dtype)
-            out = dcnv3_win_cuda(xd, off, m, **kw)
             ref = dcnv3_core(xd.float(), off, m, **kw)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
             bar = KERNEL_BAR * ref.abs().max().item()
-            worst = max(worst, err)
-            log(f"  dcnv3_win_fwd {name:<13} x{tuple(x.shape)} window "
-                f"{window} {str(dtype).split('.')[1]:<8} clamp holds "
-                f"{100 * share:5.1f} % max_abs_err {err:.3e} (bar {bar:.3e}) "
-                f"{'ok' if err <= bar else 'FAIL'}")
-            if err > bar:
-                fail(f"dcnv3_win_fwd disagrees with dcnv3_core on {name} "
-                     f"{dtype}")
-    return worst
+            for plan in ("default",) + SWEEP_PLANS[:2]:
+                out = dcnv3_win_cuda(xd, off, m, plan=plan, **kw)
+                torch.cuda.synchronize()
+                err = (out - ref).abs().max().item()
+                key = "default" if plan == "default" else "sweep"
+                worst[key] = max(worst[key], err)
+                log(f"  dcnv3_win_fwd {name:<13} x{tuple(x.shape)} window "
+                    f"{window} {str(dtype).split('.')[1]:<8} {plan:<7} clamp "
+                    f"holds {100 * share:5.1f} % max_abs_err {err:.3e} (bar "
+                    f"{bar:.3e}) {'ok' if err <= bar else 'FAIL'}")
+                if err > bar:
+                    fail(f"dcnv3_win_fwd ({plan}) disagrees with dcnv3_core "
+                         f"on {name} {dtype}")
+    return worst["default"], worst["sweep"]
+
+
+def sweep(gen, card: str, reps: int = 20) -> dict:
+    """Phase 5b: the TPU sweep's path (``tools/win_kernel_split.py`` runs
+    it with every variant) at its shape: the windowed forward at each of
+    ``SWEEP_PLANS``, through its wrapper, counted (counts reset before,
+    read after), held against the plain version on the first CHECK_BATCH
+    images and timed beside the default plan; returns the counts, the
+    largest error, each plan's time, the plain version's and the bound."""
+    import torch
+
+    from givepose_torch.ops.dcnv3 import dcnv3_core
+    from givepose_torch.ops.dcnv3_cuda import dcnv3_win_cuda
+
+    x, off, m = dcnv3_inputs(gen, SWEEP_BATCH, 64, 64, 4, 64, 2, 1, 1, 2.0)
+    x = x.to(torch.bfloat16)
+    kw = dict(stride=2, pad=1, dilation=1, group=4, window=WINDOW)
+    reset_counts()
+    outs = {plan: dcnv3_win_cuda(x, off, m, plan=plan, **kw)
+            for plan in SWEEP_PLANS}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts(counts, {"dcnv3_win_fwd": len(SWEEP_PLANS),
+                          "win_kernel_split": len(SWEEP_PLANS)}, "the sweep")
+    ref = dcnv3_core(x[:CHECK_BATCH].float(), off[:CHECK_BATCH],
+                     m[:CHECK_BATCH], **kw)
+    bar = KERNEL_BAR * ref.abs().max().item()
+    err = 0.0
+    for plan, out in outs.items():
+        e = (out[:CHECK_BATCH] - ref).abs().max().item()
+        log(f"  sweep {plan:<7} x{tuple(x.shape)} bf16: max_abs_err {e:.3e} "
+            f"(bar {bar:.3e}, {CHECK_BATCH} images) "
+            f"{'ok' if e <= bar else 'FAIL'}")
+        if e > bar:
+            fail(f"dcnv3_win_fwd ({plan}) disagrees with dcnv3_core at the "
+                 "sweep's shape")
+        err = max(err, e)
+    del outs, ref
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    ms = {plan: time_ms(lambda plan=plan: dcnv3_win_cuda(
+        x, off, m, plan=plan, **kw), reps, flush)
+        for plan in ("default",) + SWEEP_PLANS}
+    plain_ms = time_ms(lambda: dcnv3_core(x.float(), off, m, **kw), 2, flush)
+    n_bytes = (x.numel() * 2 + off.numel() * 4 + m.numel() * 4
+               + x.shape[0] * off.shape[1] * off.shape[2] * 256 * 4)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (x.shape[0] * off.shape[1] * off.shape[2] * 256 * 9
+              * FLOP_PER_TAP_CHANNEL / F32_FLOP_PER_S * 1e3)
+    log(f"  sweep x{tuple(x.shape)} bf16, window {WINDOW}: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+        + f"; plain {plain_ms:.4f} ms; bound {max(bytes_ms, ops_ms):.4f} ms "
+        f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s) [{card}]")
+    return dict(counts=counts, err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_ms, ops_ms), ops_ms=ops_ms)
 
 
 def check_win_bwd_kernel(gen) -> float:
@@ -2069,12 +2147,18 @@ def main(argv: list[str]) -> None:
     t0 = time.time()
     max_err = check_kernel(gen)
     max_bwd_err = check_bwd_kernel(gen)
-    win_err = check_win_kernel(gen)
+    win_err, sweep_err = check_win_kernel(gen)
     win_bwd_err = check_win_bwd_kernel(gen)
     mlp_err = check_mlp_kernel(gen)
     qmm_err, qmm_pre_err = check_qmm_kernels(gen)
     check_quant_dense(gen)
     log(f"phase kernel check: ok in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    tot_sweep = sweep(gen, card)
+    log(f"phase sweep: the windowed forward at the TPU sweep's plans "
+        f"{SWEEP_PLANS}, batch {SWEEP_BATCH}, launches "
+        f"{tot_sweep['counts']}, in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
     # serving, default ModelConfig: the unwindowed DCNv3 forward kernel
     t0 = time.time()
@@ -2211,6 +2295,7 @@ def main(argv: list[str]) -> None:
     t0 = time.time()
     tot_bwd_win = time_bwd_layers(gen, card, window=WINDOW, reps=20)
     step_ms_w = time_train(state, step, batch, card)
+    profile_train_step(state, step, batch, step_ms_w, card)
     log(f"phase train window timing: {step_ms_w:.3f} ms per step, in "
         f"{time.time() - t0:.1f} s")
     log(f"all phases ok in {time.time() - start:.1f} s")
@@ -2276,6 +2361,27 @@ def main(argv: list[str]) -> None:
         "plain_ms": tot_win["plain_ms"],
         "bound_ms": tot_win["bound_ms"],
         "bound_by": bound_by(tot_win),
+        # no single PyTorch call computes DCNv3
+        "library_ms": None,
+    }, {
+        # the TPU sweep of B3's design variants: its mono and chunk
+        # kernels are plans of the windowed forward, its ablations copies
+        # of the source in tools/win_kernel_split.py
+        "name": "win_kernel_split",
+        "route": "cuda",
+        "source": "givepose_torch/csrc/dcnv3_win_fwd.cu",
+        "tool": "tools/win_kernel_split.py",
+        "replaces": "benchmarks/bench_win_kernel_split.py:33 _kernel, "
+                    ":190 _mono_kernel, :272 _chunk_kernel",
+        "launches": tot_sweep["counts"]["win_kernel_split"],
+        "max_abs_err": max(sweep_err, tot_sweep["err"]),
+        # at the sweep's shape (batch 128, layer 0): the mono plan; the
+        # others and the default plan beside it
+        "ms": tot_sweep["ms"]["mono"],
+        "plan_ms": tot_sweep["ms"],
+        "plain_ms": tot_sweep["plain_ms"],
+        "bound_ms": tot_sweep["bound_ms"],
+        "bound_by": bound_by(tot_sweep),
         # no single PyTorch call computes DCNv3
         "library_ms": None,
     }, {

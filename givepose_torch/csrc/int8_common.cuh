@@ -1,10 +1,11 @@
 // Shared pieces of the int8 kernels (int8_mlp.cu, int8_qmm.cu), sm_90a:
 // the f32 constants of the JAX package's int8 arithmetic, dtype
 // conversions, the f32 activation and half-to-even quantization; and the
-// Hopper machinery both kernels are built from: mbarriers, TMA loads of
-// int8 tiles in 128-byte swizzled rows (and the tensor-map encoder that
-// describes them), wgmma s8 from shared memory, and the consumers' side of
-// a TMA ring fed by a producer warp.
+// Hopper machinery both kernels are built from (the mbarriers, TMA loads
+// and tensor-map encoder of hopper_common.cuh): int8 tiles in 128-byte
+// swizzled rows and the tensor map that describes them, wgmma s8 from
+// shared memory, and the consumers' side of a TMA ring fed by a producer
+// warp.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
@@ -12,7 +13,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace int8k {
+
+using hopper::EncodeTiled;
+using hopper::encoder;
+using hopper::fence_async_smem;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+using hopper::tma_load;
 
 // f32 constants, bit for bit those the JAX package and the plain versions
 // use (each a Python float rounded once to f32)
@@ -68,67 +81,17 @@ __device__ __forceinline__ float row_scale(float amax) {
   return __fmul_rn(fmaxf(amax, eps8()), inv127());
 }
 
-// ---- shared-memory addresses, mbarriers, TMA ----------------------------
+// ---- TMA tiles and the consumers' barrier ----------------------------
 
 constexpr int kSlice = 128;          // K bytes of a TMA box (the swizzle)
 constexpr int kConsumers = 256;      // two consumer warpgroups (B6)
 constexpr size_t kMaxSmem = 227 * 1024;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // byte offset of (row, k) in a tile of 128-byte rows under the 128-byte
 // swizzle that TMA writes and wgmma reads: the 16-byte chunk index xor
 // the row within its group of 8 (the tile 1024-byte aligned)
 __device__ __forceinline__ int swz(int row, int k) {
   return row * 128 + ((((k >> 4) ^ row) & 7) << 4) + (k & 15);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// generic-proxy writes to shared memory made visible to wgmma
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // the N consumer threads, not the producer warpgroup
@@ -343,29 +306,6 @@ struct Ring {
 };
 
 // ---- host side --------------------------------------------------------
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so that the
-// library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
 
 // a row-major int8 matrix (rows x cols, cols a multiple of 16, the base
 // 16-byte aligned: TMA's rules) read in boxes of box_rows x 128 bytes,

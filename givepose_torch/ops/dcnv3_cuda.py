@@ -22,9 +22,13 @@ channels a lane (8 in 16-byte loads where gc and alignment allow).
 Output is f32, as the TPU kernel's; the module casts it to its compute
 dtype.
 
-Windowed forward bound: memory, as the forward.  A block stages the slab
-of x that its tile of output rows can reach in shared memory and gathers
-from there (the window bounds the slab; see the source's note).
+Windowed forward bound: memory, as the forward.  The window bounds the
+input a tile of output pixels can reach, its slab: a block stages the
+slab of one (image, group) into shared memory by TMA (or, where TMA's
+rules fail, by its own copies), computes the tile's taps meanwhile into
+a table of slab offsets and weights, and gathers from shared memory
+only, 16-byte loads of 8 bf16 channels a lane.  ``win_plan`` chooses the
+tiling per shape (see the source's note).
 
 Backward bound: memory.  About 16 flop per (pixel, group, tap, channel)
 (4 corner dots, 4 scatter products and adds) against x, grad_out, offset
@@ -50,6 +54,8 @@ serving graph.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -64,9 +70,9 @@ _fns: dict[str, object] = {}
 # C entry point -> (pointers, ints after offset_scale): every entry point
 # takes its pointers with an int after the first (x's dtype), 11 int
 # shapes, offset_scale, those ints (window where there is one, vec, and
-# for the forward and the backward the tile's height and width) and the
-# stream
-_SIGNATURES = {"dcnv3_fwd": (4, 3), "dcnv3_win_fwd": (4, 2),
+# for the forward and the backward the tile's height and width, for the
+# windowed forward its plan) and the stream
+_SIGNATURES = {"dcnv3_fwd": (4, 3), "dcnv3_win_fwd": (4, 8),
                "dcnv3_bwd": (7, 4)}
 
 
@@ -184,6 +190,205 @@ def dcn_tile(group: int, kernel: int, backward: bool) -> tuple[int, int]:
     return th, tw
 
 
+# the windowed forward's plan (csrc/dcnv3_win_fwd.cu Plan): a tile of
+# WIN_TILE output pixels of one (image, group) a block by default, halved
+# along its longer side until the block's shared memory fits
+# WIN_SMEM_BYTES (two blocks an SM; at the MAPEncoder's bf16 shapes a
+# block takes 53 KB, and four share an SM) and until the grid has
+# WIN_MIN_BLOCKS blocks (one for each of the H100's SMs) or the tile 8
+# pixels.  Larger and smaller tiles, several tiles a block and one block
+# an (image, group) were slower on the H100 (tools/win_kernel_split.py,
+# PERF.md).
+WIN_TILE = (4, 8)
+WIN_SMEM_BYTES = 112 * 1024
+WIN_MIN_BLOCKS = 132
+WIN_MAX_SMEM = 227 * 1024          # a block's shared memory on the H100
+WIN_BAR_BYTES = 128                # the slab buffers' mbarriers
+WIN_TAP_BYTES = 16                 # SlabTap: a corner's offset, fx, fy, mask
+WIN_MAX_TAPS = 512                 # a tile's taps: two for each of 256 threads
+WIN_MAX_BOX = 256                  # TMA: elements along a box dimension
+
+
+@dataclasses.dataclass(frozen=True)
+class WinPlan:
+    """How the windowed forward covers one shape: tiles of ``tile_rows`` x
+    ``tile_cols`` output pixels of one (image, group), ``tiles_per_block``
+    consecutive tiles of an image (row-major) a block, each tile's slab
+    staged into one of ``stages`` shared buffers by ``staging`` ("tma" or
+    "copy"), ``smem_bytes`` of shared memory a block.  The geometry it was
+    made for is kept, so that its tiles and slabs can be listed."""
+
+    tile_rows: int
+    tile_cols: int
+    tiles_per_block: int
+    stages: int
+    staging: str
+    smem_bytes: int
+    n: int
+    ho: int
+    wo: int
+    group: int
+    kernel: int
+    stride: int
+    pad: int
+    dilation: int
+    window: int
+
+    @property
+    def slab_rows(self) -> int:
+        return win_span(self.tile_rows, self.stride, self.window)
+
+    @property
+    def slab_cols(self) -> int:
+        return win_span(self.tile_cols, self.stride, self.window)
+
+    @property
+    def tiles_per_image(self) -> int:
+        return (-(-self.ho // self.tile_rows)) * (-(-self.wo // self.tile_cols))
+
+    @property
+    def blocks(self) -> int:
+        return self.n * self.group * -(-self.tiles_per_image
+                                        // self.tiles_per_block)
+
+    def block_tiles(self, chunk: int) -> list:
+        """The first output pixel (oh0, ow0) of each tile that a block of
+        an (image, group) walks, ``chunk`` counting its blocks."""
+        n_ct = -(-self.wo // self.tile_cols)
+        first = chunk * self.tiles_per_block
+        last = min(first + self.tiles_per_block, self.tiles_per_image)
+        return [(t // n_ct * self.tile_rows, t % n_ct * self.tile_cols)
+                for t in range(first, last)]
+
+    def slab_origin(self, oh0: int, ow0: int) -> tuple[int, int]:
+        """The input pixel (y, x), unpadded, at the top left of the slab of
+        the tile whose first output pixel is (oh0, ow0)."""
+        half = self.dilation * (self.kernel - 1) // 2
+        return (half + self.stride * oh0 - self.window - self.pad,
+                half + self.stride * ow0 - self.window - self.pad)
+
+    def args(self, gc: int, elem: int) -> tuple:
+        """The plan's ints of the C entry point, after window: vec, tile
+        rows and columns, tiles a block, stages, TMA, shared bytes."""
+        return (win_vec(gc, elem), self.tile_rows, self.tile_cols,
+                self.tiles_per_block, self.stages,
+                int(self.staging == "tma"), self.smem_bytes)
+
+
+def win_span(tile: int, stride: int, window: int) -> int:
+    """Input pixels along one side of a slab: a tile of ``tile`` outputs
+    at ``stride`` reaches centre +- window and the +1 neighbour."""
+    return stride * (tile - 1) + 2 * window + 2
+
+
+def win_vec(gc: int, elem: int) -> int:
+    """The channels a lane gathers at once from the slab (16-byte aligned
+    in shared memory whatever x's alignment): the largest of 8, 4, 2, 1
+    that divides gc and spans at most 16 bytes."""
+    return next(v for v in (8, 4, 2, 1) if gc % v == 0 and v * elem <= 16)
+
+
+def win_smem_bytes(tile_rows: int, tile_cols: int, stages: int,
+                   tiles_per_block: int, gc: int, elem: int, kernel: int,
+                   stride: int, window: int) -> int:
+    """A block's shared memory, as ``csrc/dcnv3_win_fwd.cu`` make_plan
+    counts it: the mbarriers, ``stages`` slabs of gc channels a pixel
+    (each rounded up to 128 bytes) and a table of the tile's taps, two
+    when the block walks several tiles (the next tile's taps are written
+    while the current one is sampled)."""
+    slab = (win_span(tile_rows, stride, window)
+            * win_span(tile_cols, stride, window) * gc * elem)
+    tables = 2 if tiles_per_block > 1 else 1
+    return (WIN_BAR_BYTES + stages * (-(-slab // 128) * 128)
+            + tables * tile_rows * tile_cols * kernel * kernel
+            * WIN_TAP_BYTES)
+
+
+@functools.lru_cache(maxsize=512)
+def win_plan(n: int, ho: int, wo: int, group: int, gc: int, elem: int,
+             kernel: int, stride: int, pad: int, dilation: int, window: int,
+             aligned: bool = True, mode: str = "default") -> WinPlan:
+    """The windowed forward's plan for one shape (x of ``elem`` bytes an
+    element, ``aligned``: its base 16-byte aligned).  ``mode``: "default"
+    (one tile a block), "mono" (one block an (image, group), walking all
+    of its tiles), "chunkN" (N tiles a block); any of them may be joined
+    by "-" with "tileRxC" (tiles of R x C before fitting) or "copy" (the
+    block's own copies instead of TMA).  A block that walks
+    several tiles stages the next slab into a second buffer while it
+    samples the current one, where two fit in ``WIN_SMEM_BYTES``.  TMA
+    stages the slab where its rules hold (x aligned, gc and G*gc channels
+    whole multiples of 16 bytes, each box side at most 256); the block
+    copies it otherwise.  Raises ValueError where not even a one-pixel
+    tile's slab fits in a block's shared memory."""
+    tile, per_block, staging = None, 1, None
+    for token in mode.split("-"):
+        if token == "default":
+            continue
+        if token == "mono":
+            per_block = 0
+        elif token.startswith("chunk") and token[5:].isdigit():
+            per_block = int(token[5:])
+        elif token.startswith("tile") and "x" in token:
+            tile = tuple(int(v) for v in token[4:].split("x"))
+        elif token == "copy":
+            staging = "copy"
+        else:
+            raise ValueError(f"unknown windowed-forward plan {mode!r}")
+    fit_grid = tile is None and per_block == 1
+    tile = tile or WIN_TILE
+    tr, tc = min(tile[0], ho), min(tile[1], wo)
+
+    def smem(r, c, s):
+        return win_smem_bytes(r, c, s, per_block, gc, elem, kernel, stride,
+                              window)
+
+    def blocks(r, c):
+        return n * group * (-(-ho // r)) * (-(-wo // c))
+
+    while tr * tc > 1 and (smem(tr, tc, 1) > WIN_SMEM_BYTES
+                           or tr * tc * kernel * kernel > WIN_MAX_TAPS):
+        tr, tc = (tr, tc // 2) if tc >= tr else (tr // 2, tc)
+    while fit_grid and blocks(tr, tc) < WIN_MIN_BLOCKS and tr * tc > 8:
+        tr, tc = (tr, tc // 2) if tc >= tr else (tr // 2, tc)
+    if (smem(tr, tc, 1) > WIN_MAX_SMEM
+            or tr * tc * kernel * kernel > WIN_MAX_TAPS):
+        raise ValueError(
+            f"the windowed DCNv3 forward's one-pixel slab ({gc} channels of "
+            f"{elem} bytes, stride {stride}, window {window}: "
+            f"{smem(1, 1, 1)} bytes) exceeds a block's shared memory "
+            f"({WIN_MAX_SMEM})")
+    tiles = (-(-ho // tr)) * (-(-wo // tc))
+    per_block = min(per_block or tiles, tiles)
+    c_total = group * gc
+    tma_ok = (aligned and (gc * elem) % 16 == 0
+              and (c_total * elem) % 16 == 0 and gc <= WIN_MAX_BOX
+              and max(win_span(tr, stride, window),
+                      win_span(tc, stride, window)) <= WIN_MAX_BOX)
+    staging = staging or ("tma" if tma_ok else "copy")
+    if staging == "tma" and not tma_ok:
+        raise ValueError(f"plan {mode!r}: TMA cannot stage this shape")
+    stages = 2 if (staging == "tma" and per_block > 1
+                   and smem(tr, tc, 2) <= WIN_SMEM_BYTES) else 1
+    return WinPlan(tr, tc, per_block, stages, staging, smem(tr, tc, stages),
+                   n, ho, wo, group, kernel, stride, pad, dilation, window)
+
+
+def win_args(x, offset, mask, out, kernel, stride, pad, dilation, group,
+             offset_scale, window, plan: str = "default") -> tuple:
+    """The arguments of the C entry point ``dcnv3_win_fwd`` for checked
+    inputs at the plan ``plan`` (a ``win_plan`` mode), on the current
+    stream of x's device."""
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    shapes = _shape_args(x, offset, kernel, stride, pad, dilation, group,
+                         offset_scale)
+    n, _, _, ho, wo, _, gc = shapes[:7]
+    wp = win_plan(n, ho, wo, group, gc, x.element_size(), kernel, stride,
+                  pad, dilation, int(window), x.data_ptr() % 16 == 0, plan)
+    return (x.data_ptr(), int(x.dtype == torch.bfloat16), offset.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), *shapes, int(window),
+            *wp.args(gc, x.element_size()), stream)
+
+
 def _shape_args(x, offset, kernel, stride, pad, dilation, group,
                 offset_scale) -> list:
     n, h, w, c_total = x.shape
@@ -249,36 +454,34 @@ dcnv3_cuda.launches = 0
 def dcnv3_win_cuda(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                    kernel: int = 3, stride: int = 1, pad: int = 1,
                    dilation: int = 1, group: int = 4,
-                   offset_scale: float = 1.0, window: int = 3
-                   ) -> torch.Tensor:
+                   offset_scale: float = 1.0, window: int = 3,
+                   plan: str = "default") -> torch.Tensor:
     """Launch the windowed DCNv3 forward kernel.  Contract of
     ``dcnv3_core(..., window=window)`` with window > 0, inputs as
-    ``dcnv3_cuda``; returns (N,Ho,Wo,G*gc) f32."""
+    ``dcnv3_cuda``; returns (N,Ho,Wo,G*gc) f32.  ``plan``: a ``win_plan``
+    mode (the operator takes the default); each launch is counted in
+    ``launches`` and, by plan, in ``plan_launches``."""
     if int(window) != window or window <= 0:
         raise ValueError(f"window must be a positive int, got {window}")
-    if kernel * kernel > 32:
-        raise ValueError(f"the windowed kernel takes kernel <= 5, got "
-                         f"{kernel}")
     n, h, w, h_out, w_out, gc = _check_inputs(x, offset, mask, kernel, group,
                                               "dcnv3_win_cuda")
     c_total = x.shape[-1]
     out = torch.empty((n, h_out, w_out, c_total), device=x.device,
                       dtype=torch.float32)
-    vec = 2 if gc % 2 == 0 else 1
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel(WIN_FWD_SOURCE, "dcnv3_win_fwd")(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), offset.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), n, h, w, h_out, w_out, group,
-            gc, kernel, stride, pad, dilation, float(offset_scale),
-            int(window), vec, stream)
+        err = _kernel(WIN_FWD_SOURCE, "dcnv3_win_fwd")(*win_args(
+            x, offset, mask, out, kernel, stride, pad, dilation, group,
+            offset_scale, window, plan))
     if err != 0:
         raise RuntimeError(f"dcnv3_win_fwd launch failed: cudaError {err}")
     dcnv3_win_cuda.launches += 1
+    dcnv3_win_cuda.plan_launches[plan] = (
+        dcnv3_win_cuda.plan_launches.get(plan, 0) + 1)
     return out
 
 
 dcnv3_win_cuda.launches = 0
+dcnv3_win_cuda.plan_launches = {}
 
 
 def dcnv3_bwd_cuda(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,

@@ -206,6 +206,79 @@ def test_win_kernel_matches_plain(cuda, dtype, gc, stride, dilation, mult, h,
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
+# the windowed forward's plans (ops/dcnv3_cuda.py win_plan): one tile a
+# block, one block an (image, group) walking all of its tiles with two
+# slab buffers, two tiles a block, and the block's own copies in place of
+# TMA
+WIN_PLANS = ["default", "mono", "chunk2", "copy"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", WIN_PLANS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("gc,stride,dilation,mult,h,window,bound", WIN_CASES)
+def test_win_plans_match_plain(cuda, plan, dtype, gc, stride, dilation,
+                               mult, h, window, bound):
+    """Every plan of the windowed forward against the plain version; the
+    launch counted under its plan."""
+    from givepose_torch.ops.dcnv3_cuda import win_plan
+
+    x, off, m = make_inputs(gc + 13, 2, h, h + 3, 4, gc, stride, dilation,
+                            mult, cuda)
+    if bound:
+        off = on_bound(off, window)
+    kw = dict(stride=stride, dilation=dilation, group=4, window=window)
+    x = x.to(dtype)
+    wp = win_plan(2, off.shape[1], off.shape[2], 4, gc, x.element_size(),
+                  3, stride, 1, dilation, window, True, plan)
+    if plan == "copy":
+        assert wp.staging == "copy"
+    before = dcnv3_win_cuda.plan_launches.get(plan, 0)
+    out = dcnv3_win_cuda(x, off, m, plan=plan, **kw)
+    ref = dcnv3_core(x.float(), off, m, **kw)
+    torch.cuda.synchronize()
+    assert dcnv3_win_cuda.plan_launches[plan] == before + 1
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["default", "mono", "chunk2"])
+@pytest.mark.parametrize("dtype,shift", [
+    (torch.bfloat16, 1), (torch.bfloat16, 4), (torch.float32, 2),
+    (torch.float32, 0)])
+def test_win_kernel_takes_misaligned_x(cuda, plan, dtype, shift):
+    """x a contiguous view ``shift`` elements into a buffer at the first
+    MAPEncoder layer's width: TMA where x stays 16-byte aligned, the
+    block's copies where it does not, both right."""
+    from givepose_torch.ops.dcnv3_cuda import win_plan
+
+    x, off, m = make_inputs(17, 2, 24, 20, 4, 64, 2, 1, 2.0, cuda)
+    buf = torch.empty(x.numel() + 8, dtype=dtype, device=cuda)
+    xs = buf[shift:shift + x.numel()].view(x.shape)
+    xs.copy_(x)
+    aligned = xs.data_ptr() % 16 == 0
+    wp = win_plan(2, 12, 10, 4, 64, xs.element_size(), 3, 2, 1, 1, 4,
+                  aligned, plan)
+    assert wp.staging == ("tma" if aligned else "copy")
+    kw = dict(stride=2, group=4, window=4)
+    out = dcnv3_win_cuda(xs, off, m, plan=plan, **kw)
+    ref = dcnv3_core(xs.float(), off, m, **kw)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_win_kernel_raises_on_an_oversized_slab(cuda):
+    """A shape whose one-pixel slab exceeds a block's shared memory raises
+    ValueError naming it, and launches nothing."""
+    x, off, m = make_inputs(1, 1, 20, 20, 1, 1024, 1, 1, 2.0, cuda)
+    before = dcnv3_win_cuda.launches
+    with pytest.raises(ValueError, match="one-pixel slab"):
+        dcnv3_win_cuda(x, off, m, stride=1, group=1, window=8)
+    assert dcnv3_win_cuda.launches == before
+
+
 @pytest.mark.cuda
 def test_win_kernel_wide_rows_tile_columns(cuda):
     """f32 x, 64 channels per group and a 96-wide input: one full output

@@ -173,7 +173,7 @@ def test_train_raises(batch):
 def test_port_imports_no_jax():
     """Every module of the port (the operator library, the W8A8 layer and
     the export CLI named as well), chip_smoke.py and the GPU scripts under
-    tools/ import without JAX."""
+    tools/ (the windowed kernel's sweep too) import without JAX."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import givepose_torch\n"
@@ -185,7 +185,7 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "sys.path.insert(0, 'tools')\n"
         "import train_path_spread, mlp_breakdown, dcnv3_breakdown\n"
-        "import reduction_probe, qmm_breakdown\n"
+        "import reduction_probe, qmm_breakdown, win_kernel_split\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'givepose_tpu')]\n"
         "assert not bad, bad\n"
