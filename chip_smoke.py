@@ -75,7 +75,23 @@ Phases, each of which exits non-zero when it fails:
    with CUDA events, break the forwards' and both train steps' device
    time down by op with torch.profiler, and the
    default train step's wall and device time down by part (forward,
-   gradients, optimizer).
+   gradients, optimizer);
+8. the data path and the training CLI: write a fixture of 96 images with
+   the port's own writer (``data/synthetic.py``: no OpenCV, no JAX) into
+   ``build/``, read a batch of 48 through ``TrainPipeline``, preprocess it
+   on the card and on the CPU with the same draws (gathers, masks,
+   coordinates and labels bitwise, the rest within KERNEL_BAR) and time
+   the card's preprocessing; then run ``givepose_torch.cli.train`` in
+   this process on the card (ConvNeXt-B, ``Config()``, batch 48, 96
+   images an epoch): run A, 4 steps; run B, ``--restart_every 1`` (exit
+   75 after its first epoch) and ``--resume 1`` for 2 more.  Losses
+   finite, checkpoints written, 3 launches of each DCNv3 kernel a step,
+   run B on run A's raw batches bitwise, the resumed step's loss equal to
+   the forward from its checkpoint; run B's third loss beside run A's,
+   and the first step's gradients computed twice, by module; images/s of
+   the CLI loop, the read-and-collate time of a batch, each step's wait
+   on the prefetch queue and the preprocessing's device time beside the
+   train step of phase 6.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -184,6 +200,21 @@ QMM_MMA_SYNC_MS = {"int8_qmm": 0.8510, "int8_qmm_pre": 0.5046}
 # of the output dtype at max|ref|, mean within MLP_MEAN_BAR * mean|ref|
 QMM_FLIPS = 3
 # serving artifact: the graph only, the weights as call arguments
+CLI_BATCH = 48             # the CLI phase: TrainConfig.batch_size
+CLI_IMAGES = 2 * CLI_BATCH # fixture images: two batches an epoch
+CLI_STEPS = 4              # run A: two epochs
+PRE_REPS = 5               # timed device preprocessing runs
+CLI_BACKBONE = "base"      # ConvNeXt-B
+CLI_FLAGS = ("--device", "cuda")
+# outputs of preprocess_batch that are gathers, masks, coordinates or
+# labels: the card's equal the CPU's bitwise; the others (colour
+# augmentation, normalization, the bilinear resize) within KERNEL_BAR
+PRE_BITWISE = ("roi_mask", "roi_mask_output", "roi_mask_deform",
+               "nocs_coord", "ivfc_coord", "roi_ivfc_mask_output",
+               "roi_coord_2d", "one_hot", "bbox_center", "img_scale",
+               "resize_ratio", "roi_wh", "cam_K", "rotation", "translation",
+               "nocs_scale", "real_size", "mean_size", "sym_info",
+               "model_point", "cat_id0")
 ARTIFACT_MAX_BYTES = 5 * 2 ** 20
 WEIGHTS_MIN_BYTES = 350e6        # f32 bytes of ConvNeXt-B PoseNet's weights
 
@@ -2105,6 +2136,387 @@ def serve_artifact(model, cfg, batches, outs, out32, per_request: dict,
     return counts
 
 
+def data_phase(card: str) -> tuple[str, str, dict]:
+    """Phase 8a: write the fixture with the port's own writer (no OpenCV,
+    no JAX), read one batch of 48 through ``TrainPipeline``, preprocess it
+    on the card and on the CPU with the same draws and compare, and time
+    the card's preprocessing.  Returns the fixture's dirs and the
+    numbers."""
+    import shutil
+
+    import torch
+
+    from givepose_torch.data import (NocsRecordReader, TrainPipeline,
+                                     draw_preprocess, preprocess_batch)
+    from givepose_torch.data.synthetic import make_synthetic_nocs
+
+    root = os.path.join(ROOT, "build", "chip_smoke_data")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    data_dir, ivfc_dir = make_synthetic_nocs(root, n_images=CLI_IMAGES,
+                                             seed=0)
+    fixture_s = time.time() - t0
+    reader = NocsRecordReader("Real", "train", data_dir, ivfc_dir)
+    if len(reader) < CLI_BATCH:
+        fail(f"the fixture holds {len(reader)} images")
+    pipe = TrainPipeline(reader, CLI_BATCH, CLI_IMAGES, seed=0)
+    batches = pipe.epoch()
+    raw = next(batches)
+    batches.close()
+    read_ms = pipe.read_seconds[0] * 1e3
+    if raw["image"].shape != (CLI_BATCH, 480, 640, 3):
+        fail(f"host batch image {raw['image'].shape}")
+    read_parts = read_breakdown(reader, raw)
+    draws = draw_preprocess(torch.Generator().manual_seed(11), CLI_BATCH)
+    if not draws["color"]["apply"].any() or not draws["mask"]["apply"].any():
+        fail("the draws took no colour or mask augmentation")
+    t0 = time.time()
+    cpu = preprocess_batch(raw, draws, device="cpu")
+    cpu_s = time.time() - t0
+    gpu = preprocess_batch(raw, draws, device="cuda")
+    torch.cuda.synchronize()
+    errs = {}
+    for k, ref in cpu.items():
+        got = gpu[k]
+        if got.device.type != "cuda" or got.shape != ref.shape \
+                or got.dtype != ref.dtype:
+            fail(f"preprocess {k}: {got.device} {got.shape} {got.dtype} "
+                 f"against the CPU's {ref.shape} {ref.dtype}")
+        got = got.cpu()
+        if k in PRE_BITWISE:
+            if not torch.equal(got, ref):
+                fail(f"preprocess {k}: the card's differs from the CPU's")
+            continue
+        err = (got.double() - ref.double()).abs().max().item()
+        scale = ref.double().abs().max().item()
+        errs[k] = err / scale
+        if not err <= KERNEL_BAR * scale:
+            fail(f"preprocess {k}: max error {err:.3e} > {KERNEL_BAR} x "
+                 f"{scale:.3e}")
+    # the card's preprocessing of the batch: wall (host to device copies
+    # of the full-resolution arrays included), CUDA events, device busy
+    for _ in range(2):
+        preprocess_batch(raw, draws, device="cuda")
+    torch.cuda.synchronize()
+    walls, events = [], []
+    for _ in range(PRE_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        preprocess_batch(raw, draws, device="cuda")
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            preprocess_batch(raw, draws, device="cuda")
+        torch.cuda.synchronize()
+    busy = device_busy_ms(prof) / 3
+    nbytes = sum(v.nbytes for v in raw.values())
+    log(f"  fixture: {len(reader)} images written in {fixture_s:.1f} s "
+        f"(the port's writer)")
+    log(f"  host batch of {CLI_BATCH}: read and collated in {read_ms:.1f} "
+        f"ms, {nbytes / 1e6:.1f} MB; a record {read_parts['record_ms']:.2f} "
+        f"ms, of it its 4 PNGs {read_parts['png_ms']:.2f} ms (inflate "
+        f"{read_parts['inflate_ms']:.2f}, unfilter "
+        f"{read_parts['unfilter_ms']:.2f}); collating {CLI_BATCH} records "
+        f"{read_parts['collate_ms']:.1f} ms")
+    log(f"  preprocess_batch card == CPU: {len(PRE_BITWISE)} gathered, "
+        f"mask, coordinate and label outputs bitwise; max error / "
+        f"max|ref| " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; the CPU took {cpu_s:.2f} s")
+    log(f"  preprocess_batch on the card, batch {CLI_BATCH}: wall "
+        f"{sum(walls) / len(walls):.3f} ms mean (min {min(walls):.3f}), "
+        f"events {sum(events) / len(events):.3f} ms, device busy "
+        f"{busy:.3f} ms [{card}]")
+    log(prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=12))
+    return data_dir, ivfc_dir, {
+        "read_ms": read_ms, "batch_mb": nbytes / 1e6,
+        "pre_wall_ms": sum(walls) / len(walls),
+        "pre_event_ms": sum(events) / len(events), "pre_busy_ms": busy,
+        "fixture_s": fixture_s, "max_rel_err": max(errs.values()),
+        **read_parts}
+
+
+def read_breakdown(reader, raw: dict, n: int = 8) -> dict:
+    """Host time of reading one record (mean of ``n``), of decoding its
+    four PNGs (color, mask, NOCS and IVFC maps) and of that the inflation
+    and the unfiltering, and of collating a batch like ``raw``."""
+    import ctypes
+    import random
+    import zlib
+
+    from givepose_torch.data import collate_records, png
+
+    t0 = time.perf_counter()
+    recs = [reader.read(i % len(reader), random.Random(i)) for i in range(n)]
+    record_ms = (time.perf_counter() - t0) * 1e3 / n
+    paths = []
+    for i in range(n):
+        sub = reader.img_list[i % len(reader)]
+        base = os.path.join(reader.data_dir, sub)
+        paths += [base + "_color.png", base + "_mask.png",
+                  base + "_coord.png",
+                  os.path.join(reader.ivfc_dir, sub + "_coor_0.png")]
+    t0 = time.perf_counter()
+    for p in paths:
+        png.imread(p)
+    png_ms = (time.perf_counter() - t0) * 1e3 / n
+    inflate = unfilter = 0.0
+    lib = png._unfilter_lib()
+    for p in paths:
+        with open(p, "rb") as f:
+            data = f.read()
+        idat = b"".join(v for k, v in png._chunks(data) if k == b"IDAT")
+        t0 = time.perf_counter()
+        rows = zlib.decompress(idat)
+        inflate += time.perf_counter() - t0
+        h = len(rows) // (640 * 3 + 1)
+        out = ctypes.create_string_buffer(h * 640 * 3)
+        t0 = time.perf_counter()
+        lib.png_unfilter(rows, out, h, 640 * 3, 3)
+        unfilter += time.perf_counter() - t0
+    batch = [recs[i % n] for i in range(len(raw["image"]))]
+    t0 = time.perf_counter()
+    collate_records(batch)
+    collate_ms = (time.perf_counter() - t0) * 1e3
+    return {"record_ms": record_ms, "png_ms": png_ms,
+            "inflate_ms": inflate * 1e3 / n, "unfilter_ms": unfilter * 1e3 / n,
+            "collate_ms": collate_ms}
+
+
+def cli_argv(data_dir: str, ivfc_dir: str, save: str, *extra) -> list:
+    """The training CLI under Config(): ConvNeXt-B, 256² crops, batch 48,
+    two steps an epoch on the fixture, on the card."""
+    return ["--dataset", "Real", "--dataset_dir", data_dir,
+            "--data.ivfc_dir", ivfc_dir, "--batch_size", str(CLI_BATCH),
+            "--train_size", str(CLI_IMAGES), "--total_epoch",
+            str(CLI_STEPS * CLI_BATCH // CLI_IMAGES), "--model_save", save,
+            "--log_every", "1", *CLI_FLAGS, *extra]
+
+
+def run_cli(argv: list, digests: list) -> object:
+    """``cli.train`` in this process, each step's raw host batch hashed
+    into ``digests``."""
+    import hashlib
+
+    from givepose_torch.cli import train as cli
+
+    original = cli.build_model_batch
+
+    def recorded(raw, draws, cfg, train=True, device=None):
+        h = hashlib.sha256()
+        for k in sorted(raw):
+            h.update(k.encode() + raw[k].tobytes())
+        digests.append(h.hexdigest())
+        return original(raw, draws, cfg, train=train, device=device)
+
+    cli.build_model_batch = recorded
+    try:
+        return cli.train(argv, backbone_variant=CLI_BACKBONE)
+    finally:
+        cli.build_model_batch = original
+
+
+def cli_metrics(save: str) -> list:
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def resumed_step_loss(data_dir: str, ivfc_dir: str, save: str,
+                      step: int) -> float:
+    """The forward loss of step ``step`` + 1 from the checkpoint
+    ``ckpt_<step>``, on the batch and generators the CLI gives that step:
+    what the CLI, resumed from that checkpoint, must log."""
+    import torch
+
+    from givepose_torch.cli import train as cli
+    from givepose_torch.core.checkpoint import restore_checkpoint
+    from givepose_torch.core.config import Config, parse_overrides
+    from givepose_torch.data import NocsRecordReader, TrainPipeline
+    from givepose_torch.losses.pose_loss import PoseLossFn
+    from givepose_torch.train import init_train_state
+
+    argv, device = cli.split_device_flag(cli_argv(data_dir, ivfc_dir, save))
+    cfg = parse_overrides(Config(), argv)
+    state = init_train_state(cfg, CLI_BACKBONE, device=device,
+                             seed=cfg.train.seed, img_size=cfg.data.img_size)
+    restore_checkpoint(os.path.join(save, f"ckpt_{step}"), state)
+    if state.step != step:
+        fail(f"ckpt_{step} holds step {state.step}")
+    reader = NocsRecordReader("Real", "train", data_dir, ivfc_dir)
+    pipe = TrainPipeline(reader, CLI_BATCH, CLI_IMAGES, seed=0)
+    spe = CLI_IMAGES // CLI_BATCH
+    pipe.skip_epochs(1 + step // spe)
+    batches = pipe.epoch()
+    for _ in range(step % spe + 1):
+        raw = next(batches)
+    batches.close()
+    gen_pre, gen_step = cli.step_generators(cfg.train.seed, step, device)
+    batch = cli.build_model_batch(raw, cli.draw_step(gen_pre, CLI_BATCH, cfg),
+                                  cfg, device=device)
+    loss_fn = PoseLossFn(cfg.loss, r_type=cfg.model.r_type,
+                         device=torch.device(device))
+    # as the step runs it: autograd on
+    out = state.model(batch, train=True, generator=gen_step)
+    return float(sum(loss_fn(out, batch).values()).detach())
+
+
+def first_step_grad_spread(data_dir: str, ivfc_dir: str, save: str
+                           ) -> dict:
+    """The first CLI step's gradients, computed twice from the seeded
+    initial weights on the same batch and generators: per top-level
+    module, (leaves that differ, leaves), and the largest relative
+    difference of a leaf and its name."""
+    import torch
+
+    from givepose_torch.cli import train as cli
+    from givepose_torch.core.config import Config, parse_overrides
+    from givepose_torch.data import NocsRecordReader, TrainPipeline
+    from givepose_torch.losses.pose_loss import PoseLossFn
+    from givepose_torch.train import init_train_state
+
+    argv, device = cli.split_device_flag(cli_argv(data_dir, ivfc_dir, save))
+    cfg = parse_overrides(Config(), argv)
+    state = init_train_state(cfg, CLI_BACKBONE, device=device,
+                             seed=cfg.train.seed, img_size=cfg.data.img_size)
+    reader = NocsRecordReader("Real", "train", data_dir, ivfc_dir)
+    pipe = TrainPipeline(reader, CLI_BATCH, CLI_IMAGES, seed=0)
+    pipe.skip_epochs(1)
+    batches = pipe.epoch()
+    raw = next(batches)
+    batches.close()
+    loss_fn = PoseLossFn(cfg.loss, r_type=cfg.model.r_type,
+                         device=torch.device(device))
+    names, params = zip(*state.model.named_parameters())
+    grads = []
+    for _ in range(2):
+        gen_pre, gen_step = cli.step_generators(cfg.train.seed, 0, device)
+        batch = cli.build_model_batch(
+            raw, cli.draw_step(gen_pre, CLI_BATCH, cfg), cfg, device=device)
+        out = state.model(batch, train=True, generator=gen_step)
+        total = sum(loss_fn(out, batch).values())
+        grads.append(torch.autograd.grad(total, params, allow_unused=True))
+    by_module: dict = {}
+    worst, worst_name = 0.0, ""
+    for n, a, b in zip(names, *grads):
+        mod = n.split(".")[0]
+        differ, count = by_module.get(mod, (0, 0))
+        same = a is None or torch.equal(a, b)
+        by_module[mod] = (differ + (not same), count + 1)
+        if not same:
+            rel = ((a - b).abs().max()
+                   / a.abs().max().clamp_min(1e-30)).item()
+            if rel > worst:
+                worst, worst_name = rel, n
+    return {"by_module": by_module, "worst": worst, "worst_name": worst_name}
+
+
+def cli_phase(data_dir: str, ivfc_dir: str, card: str, step_ms: float,
+              pre: dict) -> dict:
+    """Phase 8b: ``python -m givepose_torch.cli.train`` in this process on
+    the card, ConvNeXt-B under Config() at batch 48: run A, 4 steps over
+    two epochs; run B, ``--restart_every 1`` (exit 75 after its first
+    epoch), then ``--resume 1`` for the last two.  Checks finite losses,
+    checkpoints, 3 launches of each DCNv3 kernel a step, run B on run
+    A's raw batches bitwise, and the resumed step's loss against the
+    forward from its checkpoint.  Returns the launches of run A."""
+    import torch
+
+    save_a = os.path.join(ROOT, "build", "chip_smoke_cli", "run_a")
+    save_b = os.path.join(ROOT, "build", "chip_smoke_cli", "run_b")
+    import shutil
+    shutil.rmtree(os.path.dirname(save_a), ignore_errors=True)
+
+    digests_a, digests_b = [], []
+    t0 = time.time()
+    reset_counts()
+    state = run_cli(cli_argv(data_dir, ivfc_dir, save_a), digests_a)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    run_a_s = time.time() - t0
+    check_counts(counts, {"dcnv3_fwd": 3 * CLI_STEPS,
+                          "dcnv3_bwd": 3 * CLI_STEPS},
+                 f"{CLI_STEPS} CLI steps")
+    if state.step != CLI_STEPS or len(digests_a) != CLI_STEPS:
+        fail(f"run A took {state.step} steps")
+    del state
+    torch.cuda.empty_cache()
+    rows_a = cli_metrics(save_a)
+    losses_a = [r["total_loss"] for r in rows_a]
+    if not all(math.isfinite(v) for v in losses_a):
+        fail(f"CLI losses not finite: {losses_a}")
+    if f"ckpt_{CLI_STEPS}" not in os.listdir(save_a):
+        fail(f"run A wrote no checkpoint: {os.listdir(save_a)}")
+
+    t0 = time.time()
+    try:
+        run_cli(cli_argv(data_dir, ivfc_dir, save_b, "--restart_every", "1"),
+                digests_b)
+        fail("run B did not stop after its first epoch")
+    except SystemExit as e:
+        if e.code != 75:
+            fail(f"run B exited with {e.code}, not 75")
+    half = CLI_STEPS // 2
+    if f"ckpt_{half}" not in os.listdir(save_b):
+        fail(f"run B's restart wrote no checkpoint: {os.listdir(save_b)}")
+    state = run_cli(cli_argv(data_dir, ivfc_dir, save_b, "--restart_every",
+                             "1", "--resume", "1"), digests_b)
+    run_b_s = time.time() - t0
+    if state.step != CLI_STEPS:
+        fail(f"run B ended at step {state.step}")
+    del state
+    torch.cuda.empty_cache()
+    if digests_b != digests_a:
+        fail("run B's raw batches differ from run A's")
+    rows_b = cli_metrics(save_b)
+    losses_b = [r["total_loss"] for r in rows_b]
+    if not all(math.isfinite(v) for v in losses_b):
+        fail(f"run B's losses not finite: {losses_b}")
+    again = resumed_step_loss(data_dir, ivfc_dir, save_b, half)
+    if again != losses_b[half]:
+        fail(f"the resumed step's loss {losses_b[half]!r} is not the "
+             f"forward from ckpt_{half}: {again!r}")
+
+    waits = [r["data_wait_ms"] for r in rows_a]
+    reads = [r["read_ms"] for r in rows_a if "read_ms" in r]
+    ips = rows_a[-1]["imgs_per_sec"]
+    log(f"  run A: {CLI_STEPS} steps, losses {losses_a}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }, {run_a_s:.1f} s "
+        f"with the model's build")
+    log(f"  run B: restart (exit 75) after step {half}, resumed for "
+        f"{CLI_STEPS - half}, losses {losses_b}, raw batches == run A's "
+        f"(sha256 of every array), {run_b_s:.1f} s")
+    log(f"  the resumed step {half + 1}'s loss == the forward from "
+        f"ckpt_{half} (bitwise): {again!r}")
+    log(f"  run B's losses {'==' if losses_b == losses_a else '!='} run "
+        f"A's (bitwise; step {half + 1}: difference "
+        f"{losses_b[half] - losses_a[half]:.3e})")
+    if losses_b[half] != losses_a[half]:
+        # the same weights give the same forward (checked above), so the
+        # two runs parted in their first steps' updates
+        spread = first_step_grad_spread(data_dir, ivfc_dir, save_a)
+        torch.cuda.empty_cache()
+        log(f"  the first step's gradients, computed twice on the same "
+            f"batch and weights, differ in (leaves that differ, leaves) by "
+            f"module {spread['by_module']}, the largest relative difference "
+            f"{spread['worst']:.3e} in {spread['worst_name']}")
+    log(f"  CLI loop at batch {CLI_BATCH}: {ips:.2f} images/s over steps "
+        f"2-{CLI_STEPS} (host clock); wait on the prefetch queue per step "
+        f"{', '.join(f'{w:.1f}' for w in waits)} ms; read and collate "
+        f"{', '.join(f'{r:.1f}' for r in reads)} ms a batch; device "
+        f"preprocessing {pre['pre_busy_ms']:.3f} ms busy "
+        f"({pre['pre_wall_ms']:.3f} ms wall); train_batch's step "
+        f"{step_ms:.3f} ms ({CLI_BATCH * 1e3 / step_ms:.1f} images/s) "
+        f"[{card}]")
+    return counts
+
+
 def main(argv: list[str]) -> None:
     if argv:
         fail(f"chip_smoke.py takes no arguments, got {argv}")
@@ -2298,6 +2710,20 @@ def main(argv: list[str]) -> None:
     profile_train_step(state, step, batch, step_ms_w, card)
     log(f"phase train window timing: {step_ms_w:.3f} ms per step, in "
         f"{time.time() - t0:.1f} s")
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    # the data path and the training CLI
+    t0 = time.time()
+    data_dir, ivfc_dir, pre = data_phase(card)
+    log(f"phase data: fixture, one host batch of {CLI_BATCH}, "
+        f"preprocess_batch on the card == on the CPU, in "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    cli_counts = cli_phase(data_dir, ivfc_dir, card, step_ms, pre)
+    log(f"phase cli: givepose_torch.cli.train, ConvNeXt-B under Config() at "
+        f"batch {CLI_BATCH}, {CLI_STEPS} steps, restart and resume, in "
+        f"{time.time() - t0:.1f} s")
     log(f"all phases ok in {time.time() - start:.1f} s")
 
     def bound_by(t):
@@ -2312,7 +2738,8 @@ def main(argv: list[str]) -> None:
         "launches": serve_counts["dcnv3_fwd"],
         "launches_by_path": {"serve": serve_counts["dcnv3_fwd"],
                              "serve_artifact": art_counts["dcnv3_fwd"],
-                             "train": train_counts["dcnv3_fwd"]},
+                             "train": train_counts["dcnv3_fwd"],
+                             "train_cli": cli_counts["dcnv3_fwd"]},
         "max_abs_err": max(max_err, tot["err"]),
         "max_err": max(max_err, tot["err"]),
         # per PoseNet forward at batch 32: the three layers summed
@@ -2330,7 +2757,8 @@ def main(argv: list[str]) -> None:
         "launches": train_counts["dcnv3_bwd"]
         + win_train_counts["dcnv3_bwd"],
         "launches_by_path": {"train": train_counts["dcnv3_bwd"],
-                             "train_window": win_train_counts["dcnv3_bwd"]},
+                             "train_window": win_train_counts["dcnv3_bwd"],
+                             "train_cli": cli_counts["dcnv3_bwd"]},
         "max_abs_err": max(max_bwd_err, tot_bwd["err"], win_bwd_err,
                            tot_bwd_win["err"]),
         "max_err": max(max_bwd_err, tot_bwd["err"], win_bwd_err,

@@ -3,9 +3,9 @@
 The port keeps its own copy of ``givepose_tpu/core/config.py``'s
 ``DataConfig``, ``ModelConfig``, ``LossConfig``, ``TrainConfig``,
 ``EvalConfig`` and ``Config``: same field names, same defaults, so a
-configuration translates one to one.  The command-line overrides
-(``parse_overrides``) come with the CLI slice.  Only ``dcn_impl`` takes
-other values, because the kernels differ:
+configuration translates one to one, and of its command-line overrides
+(``parse_overrides``: the reference's flag names and the dotted form).
+Only ``dcn_impl`` takes other values, because the kernels differ:
 
   * ``auto``  - the CUDA kernel for CUDA tensors, the plain PyTorch version
     for CPU tensors;
@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
+from typing import Any
 
 import torch
 
@@ -164,3 +165,145 @@ class Config:
 
     def to_json(self) -> str:
         return json.dumps(self.to_dict(), indent=2, default=str)
+
+
+# Mapping from reference absl flag names to (section, field) for CLI parity.
+_FLAG_ALIASES: dict[str, tuple[str, str]] = {
+    "dataset": ("data", "dataset"),
+    "dataset_dir": ("data", "dataset_dir"),
+    "per_obj": ("data", "per_obj"),
+    "ban_mug": ("data", "ban_mug"),
+    "syn_ratio": ("data", "syn_ratio"),
+    "DZI_PAD_SCALE": ("data", "dzi_pad_scale"),
+    "DZI_TYPE": ("data", "dzi_type"),
+    "DZI_SCALE_RATIO": ("data", "dzi_scale_ratio"),
+    "DZI_SHIFT_RATIO": ("data", "dzi_shift_ratio"),
+    "img_size": ("data", "img_size"),
+    "out_res": ("data", "out_res"),
+    "roi_mask_r": ("data", "roi_mask_r"),
+    "roi_mask_pro": ("data", "roi_mask_pro"),
+    "color_aug_type": ("data", "color_aug_type"),
+    "color_aug_prob": ("data", "color_aug_prob"),
+    "num_workers": ("data", "num_workers"),
+    "main_backbone": ("model", "main_backbone"),
+    "mask_attention_type": ("model", "mask_attention_type"),
+    "nocsmap_encoder": ("model", "nocsmap_encoder"),
+    "use_dcn": ("model", "use_dcn"),
+    "dcn_window": ("model", "dcn_window"),
+    "quant_dense": ("model", "quant_dense"),
+    "r_type": ("model", "r_type"),
+    "t_type": ("model", "t_type"),
+    "z_type": ("model", "z_type"),
+    "flat_op": ("model", "flat_op"),
+    "drop_prob": ("model", "drop_prob"),
+    "dropblock_size": ("model", "dropblock_size"),
+    "size_head_out_dim": ("model", "size_head_out_dim"),
+    "pose_head_featdim": ("model", "pose_head_featdim"),
+    "feat_ts": ("model", "feat_ts"),
+    "use_hw": ("model", "use_hw"),
+    "feat_dim": ("model", "feat_dim"),
+    "backbone": ("model", "sn_backbone"),
+    "use_scale_net": ("model", "use_scale_net"),
+    "resize_full": ("model", "resize_full"),
+    "sn_path": ("model", "sn_path"),
+    "pose_loss_type": ("loss", "pose_loss_type"),
+    "r_loss": ("loss", "r_loss"),
+    "rot_1_w": ("loss", "rot_1_w"),
+    "tran_w": ("loss", "tran_w"),
+    "size_w": ("loss", "size_w"),
+    "scale_w": ("loss", "scale_w"),
+    "coor_w": ("loss", "coor_w"),
+    "prop_pm_w": ("loss", "prop_pm_w"),
+    "coor_gt_sym": ("loss", "coor_gt_sym"),
+    "rot_sym_num": ("loss", "rot_sym_num"),
+    "batch_size": ("train", "batch_size"),
+    "total_epoch": ("train", "total_epoch"),
+    "train_size": ("train", "train_size"),
+    "accumulate": ("train", "accumulate"),
+    "lr": ("train", "lr"),
+    "lr_scheduler_name": ("train", "lr_scheduler_name"),
+    "anneal_method": ("train", "anneal_method"),
+    "anneal_point": ("train", "anneal_point"),
+    "optimizer_type": ("train", "optimizer_type"),
+    "weight_decay": ("train", "weight_decay"),
+    "warmup_factor": ("train", "warmup_factor"),
+    "warmup_iters": ("train", "warmup_iters"),
+    "warmup_method": ("train", "warmup_method"),
+    "save_every": ("train", "save_every"),
+    "log_every": ("train", "log_every"),
+    "model_save": ("train", "model_save"),
+    "restart_every": ("train", "restart_every"),
+    "bn_recal_batches": ("train", "bn_recal_batches"),
+    "bn_freeze_point": ("train", "bn_freeze_point"),
+    "resume": ("train", "resume"),
+    "resume_model": ("train", "resume_model"),
+    "resume_point": ("train", "resume_point"),
+    "eval_inference_only": ("eval", "eval_inference_only"),
+    "eval_precise": ("eval", "eval_precise"),
+    "real_iou": ("eval", "real_iou"),
+    "use_match_for_pose": ("eval", "use_match_for_pose"),
+    "eval_batch_size": ("eval", "eval_batch_size"),
+    "use_allo": ("eval", "use_allo"),
+    "eval_size": ("eval", "eval_size"),
+    "result_dir": ("eval", "result_dir"),
+    "use_umeyama": ("eval", "use_umeyama"),
+}
+
+
+def _coerce(value: str, target: Any) -> Any:
+    if isinstance(target, bool):
+        return value.lower() in ("1", "true", "yes", "on")
+    if isinstance(target, int):
+        return int(value)
+    if isinstance(target, float):
+        return float(value)
+    if isinstance(target, (tuple, list)):
+        # e.g. --train.mesh_shape 8 or --train.mesh_shape 4,2
+        items = [v for v in value.replace("(", "").replace(")", "")
+                 .split(",") if v.strip()]
+        elem = target[0] if len(target) else 0
+        return type(target)(_coerce(v.strip(), elem) for v in items)
+    return value
+
+
+def parse_overrides(cfg: Config, argv: list[str]) -> Config:
+    """Apply ``--flag=value`` / ``--flag value`` CLI overrides.
+
+    Accepts both reference flag names (e.g. ``--DZI_PAD_SCALE``) and the
+    dotted form (``--data.dzi_pad_scale``).
+    """
+    sections = {s: dict(dataclasses.asdict(getattr(cfg, s)))
+                for s in ("data", "model", "loss", "train", "eval")}
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if not arg.startswith("--"):
+            i += 1
+            continue
+        key = arg[2:]
+        if "=" in key:
+            key, value = key.split("=", 1)
+        else:
+            if i + 1 >= len(argv):
+                raise ValueError(f"flag {arg} missing a value")
+            value = argv[i + 1]
+            i += 1
+        if "." in key:
+            section, fieldname = key.split(".", 1)
+        elif key in _FLAG_ALIASES:
+            section, fieldname = _FLAG_ALIASES[key]
+        else:
+            raise ValueError(f"unknown flag: --{key}")
+        if section not in sections or fieldname not in sections[section]:
+            raise ValueError(f"unknown config field: {section}.{fieldname}")
+        sections[section][fieldname] = _coerce(value, sections[section][fieldname])
+        i += 1
+
+    return Config(
+        data=DataConfig(**sections["data"]),
+        model=ModelConfig(**sections["model"]),
+        loss=LossConfig(**sections["loss"]),
+        train=TrainConfig(**{k: (tuple(v) if k == "mesh_shape" else v)
+                             for k, v in sections["train"].items()}),
+        eval=EvalConfig(**sections["eval"]),
+    )

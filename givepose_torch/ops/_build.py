@@ -1,12 +1,16 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's CUDA and host sources and load them with ctypes.
 
-Each ``csrc/*.cu`` file is compiled, at first use, into a plain-C shared
-library under ``build/givepose_torch/`` at the repository root (listed in
-``.gitignore``).  The file name carries a hash of the source, of every
-shared header (``csrc/*.cuh``) and of the flags, so an edited source or
-header is rebuilt and an unchanged one is loaded as it is.  ``build()``
-starts one nvcc per source, all at once.  Nothing here runs at import
-time.
+Each ``csrc/*.cu`` file is compiled with nvcc, at first use, into a
+plain-C shared library under ``build/givepose_torch/`` at the repository
+root (listed in ``.gitignore``).  The file name carries a hash of the
+source, of every shared header (``csrc/*.cuh``) and of the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it
+is.  ``build()`` starts one nvcc per source, all at once.
+
+Host sources (``csrc/png_unfilter.cpp``, and the native data runtime
+``native/src/givepose_host.cpp``) are compiled the same way with g++
+(``build_host``), without ``-march=native``, so that a library built on
+one machine runs on another.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "givepose_torch"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -97,3 +103,46 @@ def load_library(source: str) -> ctypes.CDLL:
             build([source])
             _loaded[source] = ctypes.CDLL(str(library_path(source)))
         return _loaded[source]
+
+
+def find_gxx() -> str:
+    """Path of g++ on PATH (the host compiler nvcc uses too)."""
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found: the port's host libraries are "
+                           "built from source")
+    return found
+
+
+def host_library_path(source: Path, flags=GXX_FLAGS, libs=()) -> Path:
+    h = hashlib.sha256(source.read_bytes()
+                       + " ".join((*flags, *libs)).encode())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(source: Path, flags=GXX_FLAGS, libs=()) -> Path:
+    """Compile the C++ ``source`` with g++ into a shared library (once per
+    source text and flags) and return its path; raise if g++ fails."""
+    out = host_library_path(source, flags, libs)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_gxx(), *flags, "-o", tmp, str(source), *libs]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"g++ failed on {source} ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_host_library(source: Path, flags=GXX_FLAGS, libs=()) -> ctypes.CDLL:
+    """``build_host`` if needed, then the loaded library."""
+    key = str(host_library_path(source, flags, libs))
+    with _lock:
+        if key not in _loaded:
+            _loaded[key] = ctypes.CDLL(str(build_host(source, flags, libs)))
+        return _loaded[key]

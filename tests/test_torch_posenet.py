@@ -171,9 +171,11 @@ def test_train_raises(batch):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (the operator library, the W8A8 layer and
-    the export CLI named as well), chip_smoke.py and the GPU scripts under
-    tools/ (the windowed kernel's sweep too) import without JAX."""
+    """Every module of the port (the operator library, the W8A8 layer,
+    the export and training CLIs and the data layer named as well),
+    chip_smoke.py and the GPU scripts under tools/ (the windowed kernel's
+    sweep too) import without JAX, OpenCV or PIL, which the GPU machine
+    lacks."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import givepose_torch\n"
@@ -182,16 +184,19 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import givepose_torch.ops.library, givepose_torch.models.quant\n"
         "import givepose_torch.cli.export, givepose_torch.eval\n"
+        "import givepose_torch.cli.train, givepose_torch.cli.train_durable\n"
+        "import givepose_torch.data.png, givepose_torch.data.native_loader\n"
+        "import givepose_torch.data.augment3d, givepose_torch.data.synthetic\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'tools')\n"
         "import train_path_spread, mlp_breakdown, dcnv3_breakdown\n"
         "import reduction_probe, qmm_breakdown, win_kernel_split\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'givepose_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'givepose_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules "
         "if m.startswith('givepose_torch.')]))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 33
+    assert int(res.stdout.strip()) >= 49
