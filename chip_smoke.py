@@ -91,7 +91,25 @@ Phases, each of which exits non-zero when it fails:
    and the first step's gradients computed twice, by module; images/s of
    the CLI loop, the read-and-collate time of a batch, each step's wait
    on the prefetch queue and the preprocessing's device time beside the
-   train step of phase 6.
+   train step of phase 6;
+9. the scale-net CLI: ``givepose_torch.cli.train_scale`` in this process
+   on the card, on phase 8's records at batch 48, 4 steps, the BatchNorm
+   statistics recalibrated over 2 batches at the freeze (step 3): losses
+   finite, parameters moved, the running statistics changed by the
+   recalibration, the frozen step's loss equal to a serving forward of
+   ScaleNet on its batch, ``scale_ckpt_4`` written and no kernel launched;
+   the scale step's wall and device time;
+10. evaluation: write the fixture's test split with detection pkls
+   (``make_synthetic_eval``, Real layout, 480 × 640) and run
+   ``givepose_torch.cli.evaluate`` in this process on the card, ConvNeXt-B
+   PoseNet at 256² (out_res 64, 24 instance slots an image) with
+   ``--resume_model`` phase 8's checkpoint and ``--sn_path`` phase 9's:
+   3 ``dcnv3_fwd`` launches an image, predictions finite, the mAP dicts
+   present; again from its cache (no launch, the same mAP); one image's
+   batch through the kernel path against the plain DCNv3 path (the
+   serving bars of phase 4); the eval loop's images/s and, per image, the
+   host time to read and build the batch and the forward's wall and
+   device busy.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -215,6 +233,17 @@ PRE_BITWISE = ("roi_mask", "roi_mask_output", "roi_mask_deform",
                "resize_ratio", "roi_wh", "cam_K", "rotation", "translation",
                "nocs_scale", "real_size", "mean_size", "sym_info",
                "model_point", "cat_id0")
+# the scale-net CLI phase: 4 steps at batch 48 on the CLI phase's records,
+# the BatchNorm statistics recalibrated over 2 batches and frozen at step
+# int(0.75 * 4) = 3 (TrainConfig.bn_freeze_point)
+SCALE_STEPS = 4
+SCALE_RECAL = 2
+# the eval phase: the port's fixture's test split (one instance an image),
+# ConvNeXt-B at 256², 64² maps, every image padded to 24 instance slots
+# (EvalConfig.max_instances)
+EVAL_IMAGES = 16
+EVAL_TIMED = 4             # images timed one by one after the CLI's loop
+EVAL_MAX_INSTANCES = 24
 ARTIFACT_MAX_BYTES = 5 * 2 ** 20
 WEIGHTS_MIN_BYTES = 350e6        # f32 bytes of ConvNeXt-B PoseNet's weights
 
@@ -2517,6 +2546,313 @@ def cli_phase(data_dir: str, ivfc_dir: str, card: str, step_ms: float,
     return counts
 
 
+def scale_argv(data_dir: str, ivfc_dir: str, save: str) -> list:
+    """The scale-net CLI under Config() at batch 48, two steps an epoch on
+    the CLI phase's fixture, recalibrating over SCALE_RECAL batches."""
+    return ["--dataset", "Real", "--dataset_dir", data_dir,
+            "--data.ivfc_dir", ivfc_dir, "--batch_size", str(CLI_BATCH),
+            "--train_size", str(CLI_IMAGES), "--total_epoch",
+            str(SCALE_STEPS * CLI_BATCH // CLI_IMAGES), "--model_save", save,
+            "--log_every", "1", "--train.bn_recal_batches", str(SCALE_RECAL),
+            *CLI_FLAGS]
+
+
+def scale_phase(data_dir: str, ivfc_dir: str, card: str) -> str:
+    """Phase 9: ``python -m givepose_torch.cli.train_scale`` in this
+    process on the card.  Checks finite losses, moved parameters, running
+    statistics changed by the recalibration, the frozen step's loss
+    against a serving forward of ScaleNet on the same batch, the
+    checkpoint and that no kernel launched; times the scale step.  Returns
+    the checkpoint's path."""
+    import shutil
+
+    import torch
+
+    from givepose_torch.cli import train_scale as cli
+    from givepose_torch.cli.train import split_device_flag
+    from givepose_torch.core.config import Config, parse_overrides
+    from givepose_torch.losses.pose_loss import scale_loss
+    from givepose_torch.models.scale_net import build_scalenet
+
+    save = os.path.join(ROOT, "build", "chip_smoke_scale")
+    shutil.rmtree(save, ignore_errors=True)
+    argv = scale_argv(data_dir, ivfc_dir, save)
+    cfg = parse_overrides(Config(), split_device_flag(argv)[0])
+    freeze_at = int(cfg.train.bn_freeze_point * SCALE_STEPS)
+    initial = {k: v.clone() for k, v in build_scalenet(
+        device="cuda", seed=cfg.train.seed).named_parameters()}
+
+    recal, frozen, first = {}, [], []
+    orig_recal, orig_steps = cli.recalibrate_bn, cli.make_scale_steps
+    orig_batch = cli.build_model_batch
+
+    def recalibrate(model, pipeline, cfg, step, device, logger=None):
+        norms = cli.batch_norms(model)
+        before = [(b.running_mean.clone(), b.running_var.clone())
+                  for b in norms]
+        n = orig_recal(model, pipeline, cfg, step, device, logger)
+        recal.update(step=step, batches=n, norms=len(norms), changed=sum(
+            not (torch.equal(m, b.running_mean)
+                 and torch.equal(v, b.running_var))
+            for (m, v), b in zip(before, norms)))
+        return n
+
+    def make_steps(model, cfg):
+        step, step_frozen = orig_steps(model, cfg)
+
+        def checked(state, batch):
+            with torch.no_grad():
+                gt = torch.linalg.vector_norm(batch["real_size"].float(),
+                                              dim=1)
+                served = scale_loss(cfg.loss, model(batch), gt)
+            loss = step_frozen(state, batch)
+            frozen.append((float(loss), float(served)))
+            return loss
+        return step, checked
+
+    def build_batch(raw, draws, cfg, train=True, device=None):
+        batch = orig_batch(raw, draws, cfg, train=train, device=device)
+        if not first:
+            first.append(batch)
+        return batch
+
+    reset_counts()
+    t0 = time.time()
+    cli.recalibrate_bn, cli.make_scale_steps = recalibrate, make_steps
+    cli.build_model_batch = build_batch
+    try:
+        state = cli.train_scale(argv, max_steps=SCALE_STEPS)
+    finally:
+        cli.recalibrate_bn, cli.make_scale_steps = orig_recal, orig_steps
+        cli.build_model_batch = orig_batch
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    check_counts(read_counts(), {}, "the scale CLI (no custom kernel)")
+    if state.step != SCALE_STEPS:
+        fail(f"the scale CLI took {state.step} steps")
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["scale_loss"] for line in f]
+    if len(losses) != SCALE_STEPS or not all(math.isfinite(v)
+                                             for v in losses):
+        fail(f"scale CLI losses: {losses}")
+    moved_params = sum(not torch.equal(v, initial[k])
+                       for k, v in state.model.named_parameters())
+    if moved_params != len(initial):
+        fail(f"{len(initial) - moved_params} ScaleNet parameters did not "
+             "move")
+    if recal.get("step") != freeze_at or recal["batches"] != SCALE_RECAL \
+            or recal["changed"] != recal["norms"]:
+        fail(f"the recalibration: {recal}, expected at step {freeze_at} "
+             f"over {SCALE_RECAL} batches, every BatchNorm changed")
+    if len(frozen) != SCALE_STEPS - freeze_at:
+        fail(f"{len(frozen)} frozen steps, expected "
+             f"{SCALE_STEPS - freeze_at}")
+    for loss, served in frozen:
+        if loss != served:
+            fail(f"the frozen step's loss {loss!r} is not the serving "
+                 f"forward's {served!r}")
+    ckpt = os.path.join(save, f"scale_ckpt_{SCALE_STEPS}")
+    if not os.path.isfile(ckpt):
+        fail(f"no scale_ckpt_{SCALE_STEPS}: {os.listdir(save)}")
+
+    # the train-mode step on a batch already on the card
+    step, _ = orig_steps(state.model, cfg)
+    batch = first[0]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for _ in range(2):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    pairs = []
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch, gen)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    ms = sum(s.elapsed_time(e) for s, e in pairs) / TIMED_STEPS
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+    busy = device_busy_ms(prof) / 3
+    log(f"  scale CLI: {SCALE_STEPS} steps at batch {CLI_BATCH}, losses "
+        f"{losses}, the recalibration at step {recal['step']} over "
+        f"{recal['batches']} batches changed all {recal['norms']} "
+        f"BatchNorms' statistics, {len(initial)} parameters moved, the "
+        f"frozen steps' losses == the serving forward's (bitwise) "
+        f"{[v for v, _ in frozen]}, no kernel launched, {run_s:.1f} s")
+    log(f"  scale step batch {CLI_BATCH}: {ms:.3f} ms by CUDA events, "
+        f"{wall_ms:.3f} ms wall, device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.0f} % of wall) [{card}]")
+    return ckpt
+
+
+def eval_phase(pose_ckpt: str, scale_ckpt: str, card: str) -> dict:
+    """Phase 10: ``python -m givepose_torch.cli.evaluate`` in this process
+    on the card, ConvNeXt-B at 256² with the CLIs' checkpoints, on the
+    fixture's test split.  Checks the launches per image, finite
+    predictions, the mAP dicts, a second run from the cache, and one
+    image's batch through the kernel path against the plain path; times
+    the loop and, per image, reading, building and the forward.  Returns
+    the launches of the CLI's run."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from givepose_torch.cli import evaluate as cli
+    from givepose_torch.cli.train import split_device_flag
+    from givepose_torch.core.config import Config, parse_overrides
+    from givepose_torch.data.synthetic import make_synthetic_eval
+    from givepose_torch.eval import (NocsEvalReader, build_instance_batch,
+                                     make_inference_fn)
+    from givepose_torch.eval.serving import build_posenet
+    from givepose_torch.models.scale_net import build_scalenet
+
+    root = os.path.join(ROOT, "build", "chip_smoke_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    data_dir, _ = make_synthetic_eval(root, n_images=EVAL_IMAGES, seed=3)
+    fixture_s = time.time() - t0
+    out = os.path.join(root, "out")
+    argv = ["--dataset", "Real", "--dataset_dir", data_dir, "--model_save",
+            out, "--resume_model", pose_ckpt, "--sn_path", scale_ckpt,
+            *CLI_FLAGS]
+    cfg = parse_overrides(Config(), split_device_flag(argv)[0])
+    if (cfg.data.img_size, cfg.data.out_res, cfg.eval.max_instances) != \
+            (256, 64, 24):
+        fail("the eval phase runs at 256², out_res 64, 24 slots")
+
+    loop = {}
+    orig_run = cli.run_inference
+
+    def timed_run(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = orig_run(*a, **k)
+        torch.cuda.synchronize()
+        loop["s"] = time.perf_counter() - t
+        loop["n"] = len(res)
+        return res
+
+    reset_counts()
+    t0 = time.time()
+    cli.run_inference = timed_run
+    try:
+        summary = cli.evaluate(argv, backbone_variant="base")
+    finally:
+        cli.run_inference = orig_run
+    torch.cuda.synchronize()
+    eval_s = time.time() - t0
+    counts = read_counts()
+    cache = os.path.join(out, "eval_result_ckpt_4", "pred_result.pkl")
+    with open(cache, "rb") as f:
+        results = pickle.load(f)
+    n_inst = sum(len(r["pred_RTs"]) > 0 for r in results)
+    if len(results) != EVAL_IMAGES or n_inst != EVAL_IMAGES:
+        fail(f"{len(results)} results, {n_inst} with instances, expected "
+             f"{EVAL_IMAGES}")
+    check_counts(counts, {"dcnv3_fwd": 3 * n_inst},
+                 f"evaluating {n_inst} images")
+    for r in results:
+        if r["pred_RTs"].shape != (1, 4, 4) or r["pred_scales"].shape != \
+                (1, 3) or not (np.isfinite(r["pred_RTs"]).all()
+                               and np.isfinite(r["pred_scales"]).all()):
+            fail(f"predictions {r['pred_RTs']}, {r['pred_scales']}")
+    if not summary or {"absolute", "relative", "iou_aps", "pose_aps"} - \
+            summary.keys() or "IoU25" not in summary["absolute"]:
+        fail(f"the mAP dicts: {summary}")
+
+    reset_counts()
+    again = cli.evaluate(argv, backbone_variant="base")
+    torch.cuda.synchronize()
+    check_counts(read_counts(), {}, "evaluating again from the cache")
+    if again["absolute"] != summary["absolute"] or not all(
+            np.array_equal(again[k], summary[k], equal_nan=True)
+            for k in ("iou_aps", "pose_aps")):
+        fail("the cached evaluation's mAP differs")
+
+    # one image's batch: the kernel path against the plain DCNv3 path
+    saved = torch.load(pose_ckpt, map_location="cpu", weights_only=True)
+    sn_saved = torch.load(scale_ckpt, map_location="cpu", weights_only=True)
+    model = build_posenet(cfg.model, "base", state_dict=saved["model"])
+    scale_model = build_scalenet(state_dict=sn_saved["model"])
+    reader = NocsEvalReader("Real", data_dir)
+    built = build_instance_batch(*reader.read(0), "Real")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in built[0].items()}
+    with torch.inference_mode():
+        kernel_out = model(batch)
+    compare_paths(model, batch, kernel_out)
+
+    # per image: host read and build, the forward's wall and device busy
+    infer = make_inference_fn(model, scale_model, True)
+    for _ in range(3):
+        infer(batch)
+    torch.cuda.synchronize()
+    rows, parts = [], []
+    for i in range(EVAL_TIMED):
+        t = time.perf_counter()
+        item = reader.read(i)
+        t_read = time.perf_counter() - t
+        built = build_instance_batch(*item, "Real")
+        t_build = time.perf_counter() - t - t_read
+        b = {k: torch.from_numpy(v).cuda() for k, v in built[0].items()}
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        infer(b)
+        end.record()
+        torch.cuda.synchronize()
+        rows.append((1e3 * t_read, 1e3 * t_build,
+                     1e3 * (time.perf_counter() - t), start.elapsed_time(end)))
+        # the forward's two models alone, host clock to a synchronisation
+        with torch.inference_mode():
+            t = time.perf_counter()
+            model(b)
+            torch.cuda.synchronize()
+            t_pose = time.perf_counter() - t
+            scale_model(b)
+            torch.cuda.synchronize()
+            parts.append((1e3 * t_pose,
+                          1e3 * (time.perf_counter() - t - t_pose)))
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            infer(batch)
+        torch.cuda.synchronize()
+    busy = device_busy_ms(prof) / 3
+    mean = [sum(r[j] for r in rows) / len(rows) for j in range(4)]
+    host = mean[0] + mean[1]
+    log(f"  fixture of {EVAL_IMAGES} test images and detections "
+        f"{fixture_s:.1f} s; cli.evaluate {eval_s:.1f} s with the models' "
+        f"build; launches {counts}; predictions finite; absolute mAP "
+        f"{summary['absolute']}; again from its cache: no launch, the same "
+        f"mAP")
+    log(f"  eval loop (run_inference, {loop['n']} images, {n_inst} instances "
+        f"in {EVAL_IMAGES * EVAL_MAX_INSTANCES} slots): {loop['s']:.3f} s, "
+        f"{loop['n'] / loop['s']:.2f} images/s [{card}]")
+    log(f"  per image (mean of {EVAL_TIMED}): read {mean[0]:.2f} ms, build "
+        f"the batch {mean[1]:.2f} ms (host {host:.2f} ms), the forward "
+        f"(PoseNet + ScaleNet + assembly) {mean[2]:.2f} ms wall, "
+        f"{mean[3]:.2f} ms by CUDA events, device busy {busy:.3f} ms; host "
+        f"share of an image {100 * host / (host + mean[2]):.0f} % [{card}]")
+    for i, (r, p) in enumerate(zip(rows, parts)):
+        log(f"    image {i}: read {r[0]:.2f} ms, build {r[1]:.2f} ms, "
+            f"forward {r[2]:.2f} ms wall, {r[3]:.2f} ms events; PoseNet "
+            f"alone {p[0]:.2f} ms wall, ScaleNet alone {p[1]:.2f} ms wall")
+    return counts
+
+
 def main(argv: list[str]) -> None:
     if argv:
         fail(f"chip_smoke.py takes no arguments, got {argv}")
@@ -2724,6 +3060,22 @@ def main(argv: list[str]) -> None:
     log(f"phase cli: givepose_torch.cli.train, ConvNeXt-B under Config() at "
         f"batch {CLI_BATCH}, {CLI_STEPS} steps, restart and resume, in "
         f"{time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # the scale-net CLI, then evaluation with both CLIs' checkpoints
+    t0 = time.time()
+    scale_ckpt = scale_phase(data_dir, ivfc_dir, card)
+    log(f"phase scale cli: givepose_torch.cli.train_scale at batch "
+        f"{CLI_BATCH}, {SCALE_STEPS} steps through the BatchNorm freeze, in "
+        f"{time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    pose_ckpt = os.path.join(ROOT, "build", "chip_smoke_cli", "run_a",
+                             f"ckpt_{CLI_STEPS}")
+    eval_counts = eval_phase(pose_ckpt, scale_ckpt, card)
+    log(f"phase eval: givepose_torch.cli.evaluate, ConvNeXt-B PoseNet and "
+        f"ScaleNet from the CLIs' checkpoints on {EVAL_IMAGES} images, in "
+        f"{time.time() - t0:.1f} s")
     log(f"all phases ok in {time.time() - start:.1f} s")
 
     def bound_by(t):
@@ -2739,7 +3091,8 @@ def main(argv: list[str]) -> None:
         "launches_by_path": {"serve": serve_counts["dcnv3_fwd"],
                              "serve_artifact": art_counts["dcnv3_fwd"],
                              "train": train_counts["dcnv3_fwd"],
-                             "train_cli": cli_counts["dcnv3_fwd"]},
+                             "train_cli": cli_counts["dcnv3_fwd"],
+                             "eval": eval_counts["dcnv3_fwd"]},
         "max_abs_err": max(max_err, tot["err"]),
         "max_err": max(max_err, tot["err"]),
         # per PoseNet forward at batch 32: the three layers summed

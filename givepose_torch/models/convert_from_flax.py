@@ -1,16 +1,16 @@
-"""JAX package weights -> the port's PoseNet ``state_dict``.
+"""JAX package weights -> the port's PoseNet or ScaleNet ``state_dict``.
 
 Inverse direction of ``givepose_tpu/models/convert_weights.py``: takes the
 flax variables ``{'params': ..., 'batch_stats': ...}`` of
-``givepose_tpu.models.PoseNet`` (nested dicts of numpy arrays) and returns
-a ``state_dict`` that ``givepose_torch.models.posenet.PoseNet`` loads with
-``strict=True``.  Every flax leaf maps to exactly one torch key; the only
+``givepose_tpu.models.PoseNet`` or ``ScaleNet`` (nested dicts of numpy
+arrays) and returns a ``state_dict`` that the port's model of the same
+name loads with ``strict=True``.  Every flax leaf maps to exactly one torch key; the only
 key added is BatchNorm's ``num_batches_tracked`` counter, which flax does
 not keep.
 
 Module paths: flax auto-names are renamed by ``_RENAMES``; leaf layouts:
   conv kernel     HWIO (kh,kw,in,out) -> OIHW            .transpose(3,2,0,1)
-  dw_conv kernel  (3,3,1,C)           -> (C,1,3,3)        same transpose
+  dw_conv kernel  (k,k,1,C)           -> (C,1,k,k)        same transpose
   ConvTranspose   (kh,kw,out,in)      -> (in,out,kh,kw)   same transpose
   dw_kernel       (7,7,C)             -> (C,1,7,7)
   Dense kernel    (in,out)            -> (out,in)
@@ -41,6 +41,10 @@ _RENAMES = (
     (r"/GroupNorm32_(\d+)/GroupNorm_0/", r"/norms/\1/"),
     (r"^/nocs_encoder/(?:dcn|conv)(\d+)/", r"/nocs_encoder/layers/\1/"),
     (r"^/pnp_net/conv(\d+)/", r"/pnp_net/convs/\1/"),
+    # ScaleNet's MobileNetV3 towers: flax's auto-names inside Bneck
+    (r"/(bneck\d+)/Conv_(\d+)/", r"/\1/convs/\2/"),
+    (r"/(bneck\d+)/BatchNorm_(\d+)/", r"/\1/bns/\2/"),
+    (r"/SqueezeExcite_0/", "/se/"),
 )
 
 _LEAVES = {
@@ -106,7 +110,8 @@ def _torch_tree(tree, into: dict | None = None) -> dict[str, torch.Tensor]:
 
 
 def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
-    """{'params', 'batch_stats'} of the JAX PoseNet -> torch state_dict."""
+    """{'params', 'batch_stats'} of the JAX PoseNet or ScaleNet -> torch
+    state_dict."""
     state: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         _torch_tree(variables.get(collection, {}), state)

@@ -1,3 +1,4 @@
+from givepose_torch.train.adam import ClippedAdam
 from givepose_torch.train.ranger import Ranger
 from givepose_torch.train.schedule import flat_and_anneal
 from givepose_torch.train.step import (

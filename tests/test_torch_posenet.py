@@ -172,10 +172,10 @@ def test_train_raises(batch):
 
 def test_port_imports_no_jax():
     """Every module of the port (the operator library, the W8A8 layer,
-    the export and training CLIs and the data layer named as well),
-    chip_smoke.py and the GPU scripts under tools/ (the windowed kernel's
-    sweep too) import without JAX, OpenCV or PIL, which the GPU machine
-    lacks."""
+    the export, training, scale-net and evaluation CLIs and the data and
+    eval layers named as well), chip_smoke.py and the GPU scripts under
+    tools/ (the windowed kernel's sweep and the overfit proof too) import
+    without JAX, OpenCV, PIL or matplotlib, which the GPU machine lacks."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import givepose_torch\n"
@@ -187,12 +187,16 @@ def test_port_imports_no_jax():
         "import givepose_torch.cli.train, givepose_torch.cli.train_durable\n"
         "import givepose_torch.data.png, givepose_torch.data.native_loader\n"
         "import givepose_torch.data.augment3d, givepose_torch.data.synthetic\n"
+        "import givepose_torch.cli.train_scale, givepose_torch.cli.evaluate\n"
+        "import givepose_torch.eval.load_eval, givepose_torch.models\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'tools')\n"
         "import train_path_spread, mlp_breakdown, dcnv3_breakdown\n"
         "import reduction_probe, qmm_breakdown, win_kernel_split\n"
+        "import overfit_proof\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'givepose_tpu', 'cv2', 'PIL')]\n"
+        "('jax', 'jaxlib', 'flax', 'givepose_tpu', 'cv2', 'PIL', "
+        "'matplotlib')]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules "
         "if m.startswith('givepose_torch.')]))\n")
