@@ -109,7 +109,17 @@ Phases, each of which exits non-zero when it fails:
    batch through the kernel path against the plain DCNv3 path (the
    serving bars of phase 4); the eval loop's images/s and, per image, the
    host time to read and build the batch and the forward's wall and
-   device busy.
+   device busy;
+11. the depth-assisted Umeyama eval: every test image's GT NOCS crop and
+   depth crop through ``umeyama_pose_from_maps`` on the card in one call
+   recover the GT similarity (scale within 5 %, translation within 0.02,
+   rotation within 5 degrees); then ``givepose_torch.cli.evaluate
+   --eval.use_umeyama 1`` on phase 10's split with phase 8's checkpoint
+   (ConvNeXt-B at 256², out_res 64, 24 slots): 3 ``dcnv3_fwd`` launches
+   an image, finite sRTs whose 3 x 3 block is s * R (s >= 0, R a rotation
+   within 1e-4), finite mAP; the loop's images/s and, per image, the
+   RANSAC-Umeyama fit's wall, CUDA-event and device-busy time and its
+   device time by op.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2693,6 +2703,38 @@ def scale_phase(data_dir: str, ivfc_dir: str, card: str) -> str:
     return ckpt
 
 
+def timed_evaluate(argv: list) -> tuple:
+    """``cli.evaluate(argv)`` on ConvNeXt-B in this process, its launches
+    counted from 0 and its inference loop timed on the host clock to a
+    synchronisation: (summary, {"s", "n"} of the loop, launches, seconds
+    of the whole call)."""
+    import torch
+
+    from givepose_torch.cli import evaluate as cli
+
+    loop = {}
+    orig_run = cli.run_inference
+
+    def timed_run(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = orig_run(*a, **k)
+        torch.cuda.synchronize()
+        loop["s"] = time.perf_counter() - t
+        loop["n"] = len(res)
+        return res
+
+    reset_counts()
+    t0 = time.time()
+    cli.run_inference = timed_run
+    try:
+        summary = cli.evaluate(argv, backbone_variant="base")
+    finally:
+        cli.run_inference = orig_run
+    torch.cuda.synchronize()
+    return summary, loop, read_counts(), time.time() - t0
+
+
 def eval_phase(pose_ckpt: str, scale_ckpt: str, card: str) -> dict:
     """Phase 10: ``python -m givepose_torch.cli.evaluate`` in this process
     on the card, ConvNeXt-B at 256² with the CLIs' checkpoints, on the
@@ -2730,28 +2772,7 @@ def eval_phase(pose_ckpt: str, scale_ckpt: str, card: str) -> dict:
             (256, 64, 24):
         fail("the eval phase runs at 256², out_res 64, 24 slots")
 
-    loop = {}
-    orig_run = cli.run_inference
-
-    def timed_run(*a, **k):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = orig_run(*a, **k)
-        torch.cuda.synchronize()
-        loop["s"] = time.perf_counter() - t
-        loop["n"] = len(res)
-        return res
-
-    reset_counts()
-    t0 = time.time()
-    cli.run_inference = timed_run
-    try:
-        summary = cli.evaluate(argv, backbone_variant="base")
-    finally:
-        cli.run_inference = orig_run
-    torch.cuda.synchronize()
-    eval_s = time.time() - t0
-    counts = read_counts()
+    summary, loop, counts, eval_s = timed_evaluate(argv)
     cache = os.path.join(out, "eval_result_ckpt_4", "pred_result.pkl")
     with open(cache, "rb") as f:
         results = pickle.load(f)
@@ -2850,6 +2871,193 @@ def eval_phase(pose_ckpt: str, scale_ckpt: str, card: str) -> dict:
         log(f"    image {i}: read {r[0]:.2f} ms, build {r[1]:.2f} ms, "
             f"forward {r[2]:.2f} ms wall, {r[3]:.2f} ms events; PoseNet "
             f"alone {p[0]:.2f} ms wall, ScaleNet alone {p[1]:.2f} ms wall")
+    return counts, data_dir
+
+
+def gt_recovery(data_dir: str) -> str:
+    """Phase 11 (i): every test image's GT NOCS crop and depth crop (the
+    fixture's ``_coord.png`` cropped as the batch crops depth, 64²)
+    through ``umeyama_pose_from_maps`` on the card in one call must give
+    back the GT similarity: scale within 5 %, translation within 0.02,
+    rotation within 5 degrees."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from givepose_torch.data import png
+    from givepose_torch.eval import NocsEvalReader, build_instance_batch
+    from givepose_torch.eval.umeyama_pose import umeyama_pose_from_maps
+    from givepose_torch.geometry import rotation_error_deg
+    from givepose_torch.ops.resample import crop_resize_affine_np
+
+    reader = NocsEvalReader("Real", data_dir)
+    cols = {k: [] for k in ("nocs", "px", "py", "depth", "mask", "k")}
+    gts = []
+    for i in range(len(reader)):
+        image, det, cam_k = reader.read(i)
+        batch, _ = build_instance_batch(image, det, cam_k, "Real",
+                                        depth=reader.read_depth(i))
+        path = os.path.join(data_dir, reader.img_list[i])
+        enc = png.imread(path + "_coord.png")[:, :, ::-1]
+        nocs = enc.astype(np.float32) / 255.0 - 0.5
+        nocs[:, :, 2] = -nocs[:, :, 2]          # stored z-flipped
+        cols["nocs"].append(crop_resize_affine_np(
+            nocs, batch["bbox_center"][0], batch["img_scale"][0],
+            batch["roi_depth"].shape[1], "nearest"))
+        im_h, im_w = image.shape[:2]
+        c2 = batch["roi_coord_2d"][0]
+        cols["px"].append((c2[..., 0] * (im_w - 1) + (im_w - 1)) * 0.5)
+        cols["py"].append((c2[..., 1] * (im_h - 1) + (im_h - 1)) * 0.5)
+        cols["depth"].append(batch["roi_depth"][0])
+        cols["mask"].append(batch["roi_mask_out"][0])
+        cols["k"].append(batch["cam_K"][0])
+        with open(path + "_label.pkl", "rb") as f:
+            gts.append(pickle.load(f))
+    dev = {k: torch.from_numpy(np.stack(v).astype(np.float32)).cuda()
+           for k, v in cols.items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fit = umeyama_pose_from_maps(dev["nocs"], dev["px"], dev["py"],
+                                 dev["depth"], dev["mask"], dev["k"],
+                                 generator=gen)
+    scale = fit["scale"].cpu().numpy()
+    trans = fit["translation"].cpu().numpy()
+    rot_err = rotation_error_deg(fit["rotation"], torch.from_numpy(np.stack(
+        [g["rotations"][0] for g in gts]).astype(np.float32)).cuda())
+    rot_err = rot_err.cpu().numpy()
+    s_err = np.abs(scale / np.array([g["scales"][0] for g in gts]) - 1)
+    t_err = np.abs(trans - np.stack([g["translations"][0]
+                                     for g in gts])).max(1)
+    if not (np.isfinite(scale).all() and (s_err < 0.05).all()
+            and (t_err < 0.02).all() and (rot_err < 5.0).all()):
+        fail(f"GT recovery on the card: scale errors {s_err}, translation "
+             f"errors {t_err}, rotation errors {rot_err} (bars 5 %, 0.02, "
+             f"5 degrees)")
+    return (f"{len(gts)} images in one call: scale within "
+            f"{100 * s_err.max():.3f} %, translation within "
+            f"{t_err.max():.5f}, rotation within {rot_err.max():.3f} deg")
+
+
+def umeyama_phase(pose_ckpt: str, data_dir: str, card: str) -> dict:
+    """Phase 11: the depth-assisted Umeyama eval path on the card.  (i)
+    GT recovery (``gt_recovery``); (ii) ``cli.evaluate`` with
+    ``--eval.use_umeyama 1`` on phase 10's split and phase 8's checkpoint
+    (ConvNeXt-B at 256², out_res 64, 24 slots): 3 ``dcnv3_fwd`` launches
+    an image, finite sRTs whose 3 x 3 block is s * R (s >= 0, R a
+    rotation within 1e-4), finite mAP; the loop's images/s and, per image,
+    the fit's wall, CUDA-event and device-busy time and its top device
+    ops.  Returns the launches of the CLI's run."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from givepose_torch.cli.train import split_device_flag
+    from givepose_torch.core.config import Config, parse_overrides
+    from givepose_torch.eval import NocsEvalReader, build_instance_batch
+    from givepose_torch.eval.serving import build_posenet
+    from givepose_torch.eval.umeyama_pose import umeyama_pose_from_maps
+
+    t0 = time.time()
+    recovered = gt_recovery(data_dir)
+    log(f"  (i) GT recovery: {recovered}, in {time.time() - t0:.1f} s")
+
+    out = os.path.join(ROOT, "build", "chip_smoke_eval", "out_umeyama")
+    argv = ["--dataset", "Real", "--dataset_dir", data_dir, "--model_save",
+            out, "--resume_model", pose_ckpt, "--eval.use_umeyama", "1",
+            *CLI_FLAGS]
+    summary, loop, counts, eval_s = timed_evaluate(argv)
+    with open(os.path.join(out, "eval_result_ckpt_4", "pred_result.pkl"),
+              "rb") as f:
+        results = pickle.load(f)
+    if len(results) != EVAL_IMAGES or loop["n"] != EVAL_IMAGES:
+        fail(f"{len(results)} Umeyama results, expected {EVAL_IMAGES}")
+    check_counts(counts, {"dcnv3_fwd": 3 * EVAL_IMAGES},
+                 f"the Umeyama eval of {EVAL_IMAGES} images")
+    scales = []
+    for r in results:
+        rt = r["pred_RTs"]
+        if rt.shape != (1, 4, 4) or not np.isfinite(rt).all() or not (
+                rt[0, 3] == [0, 0, 0, 1]).all():
+            fail(f"Umeyama sRT {rt}")
+        sr = rt[0, :3, :3].astype(np.float64)
+        s = float(np.linalg.norm(sr[:, 0]))
+        scales.append(s)
+        if s == 0.0:
+            if sr.any():
+                fail(f"Umeyama sRT with a zero column: {sr}")
+            continue
+        rot = sr / s
+        if np.abs(rot.T @ rot - np.eye(3)).max() > 1e-4 or abs(
+                np.linalg.det(rot) - 1) > 1e-4:
+            fail(f"Umeyama sRT's 3 x 3 block is not s * R: {sr}")
+    for part in ("absolute", "relative"):
+        if not summary[part] or not all(np.isfinite(v)
+                                        for v in summary[part].values()):
+            fail(f"the Umeyama mAP: {summary[part]}")
+
+    # the fit alone on one image's 24 slots of predicted NOCS maps
+    cfg = parse_overrides(Config(), split_device_flag(argv)[0])
+    saved = torch.load(pose_ckpt, map_location="cpu", weights_only=True)
+    model = build_posenet(cfg.model, "base", state_dict=saved["model"])
+    reader = NocsEvalReader("Real", data_dir)
+    built, _ = build_instance_batch(*reader.read(0), "Real",
+                                    depth=reader.read_depth(0))
+    b = {k: torch.from_numpy(v).cuda() for k, v in built.items()}
+    with torch.inference_mode():
+        nocs = model(b)["nocs_coor"].float()
+    imh = b["im_hw"][:, 0][:, None, None]
+    imw = b["im_hw"][:, 1][:, None, None]
+    px = (b["roi_coord_2d"][..., 0] * (imw - 1) + (imw - 1)) * 0.5
+    py = (b["roi_coord_2d"][..., 1] * (imh - 1) + (imh - 1)) * 0.5
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def fit():
+        return umeyama_pose_from_maps(nocs, px, py, b["roi_depth"],
+                                      b["roi_mask_out"], b["cam_K"].float(),
+                                      generator=gen)
+
+    for _ in range(3):
+        fit()
+    torch.cuda.synchronize()
+    walls, events = [], []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        fit()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+        events.append(start.elapsed_time(end))
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fit()
+        torch.cuda.synchronize()
+    busy = device_busy_ms(prof) / 3
+    from torch.autograd import DeviceType
+    ops = sorted(((e.self_device_time_total / 3e3, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA), reverse=True)
+    n = b["roi_depth"].shape
+    log(f"  (ii) cli.evaluate --eval.use_umeyama 1: {eval_s:.1f} s with the "
+        f"model's build; launches {counts}; sRTs finite, s * R with R a "
+        f"rotation within 1e-4, s in [{min(scales):.4g}, "
+        f"{max(scales):.4g}]; absolute mAP {summary['absolute']}")
+    log(f"  Umeyama eval loop ({loop['n']} images, {n[0]} slots of "
+        f"{n[1]}x{n[2]} cells an image): {loop['s']:.3f} s, "
+        f"{loop['n'] / loop['s']:.2f} images/s [{card}]")
+    log(f"  the fit an image ({n[0]} x 128 hypotheses over {n[1] * n[2]} "
+        f"points, {n[0] * 128 + n[0]} batched 3 x 3 SVDs): wall "
+        f"{sum(walls) / len(walls):.3f} ms (min {min(walls):.3f}), "
+        f"{sum(events) / len(events):.3f} ms by CUDA events, device busy "
+        f"{busy:.3f} ms ({100 * busy / (sum(walls) / len(walls)):.0f} % of "
+        f"wall) [{card}]")
+    log("  the fit's device time by op (ms an image): " + "; ".join(
+        f"{name[:60]} {ms:.3f}" for ms, name in ops[:8]))
     return counts
 
 
@@ -3072,9 +3280,15 @@ def main(argv: list[str]) -> None:
     t0 = time.time()
     pose_ckpt = os.path.join(ROOT, "build", "chip_smoke_cli", "run_a",
                              f"ckpt_{CLI_STEPS}")
-    eval_counts = eval_phase(pose_ckpt, scale_ckpt, card)
+    eval_counts, eval_dir = eval_phase(pose_ckpt, scale_ckpt, card)
     log(f"phase eval: givepose_torch.cli.evaluate, ConvNeXt-B PoseNet and "
         f"ScaleNet from the CLIs' checkpoints on {EVAL_IMAGES} images, in "
+        f"{time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    umeyama_counts = umeyama_phase(pose_ckpt, eval_dir, card)
+    log(f"phase umeyama: GT recovery and givepose_torch.cli.evaluate "
+        f"--eval.use_umeyama 1 on {EVAL_IMAGES} images, in "
         f"{time.time() - t0:.1f} s")
     log(f"all phases ok in {time.time() - start:.1f} s")
 
@@ -3092,7 +3306,8 @@ def main(argv: list[str]) -> None:
                              "serve_artifact": art_counts["dcnv3_fwd"],
                              "train": train_counts["dcnv3_fwd"],
                              "train_cli": cli_counts["dcnv3_fwd"],
-                             "eval": eval_counts["dcnv3_fwd"]},
+                             "eval": eval_counts["dcnv3_fwd"],
+                             "eval_umeyama": umeyama_counts["dcnv3_fwd"]},
         "max_abs_err": max(max_err, tot["err"]),
         "max_err": max(max_err, tot["err"]),
         # per PoseNet forward at batch 32: the three layers summed

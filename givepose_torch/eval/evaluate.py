@@ -10,8 +10,11 @@ as % of diameter, :205-283).
 Every image's instances run as one padded batch (``max_instances``
 slots, the JAX package's static shape) on the models' device, under
 ``torch.inference_mode``; the rot/trans/size assembly and the scale run
-there too.  The depth-assisted Umeyama pose (``eval.use_umeyama``) and
-the AP curve plot of ``eval_precise`` are not ported yet and raise.
+there too.  With ``eval.use_umeyama`` the pose comes instead from a
+RANSAC-Umeyama fit of the predicted NOCS map to the image's depth
+(``eval/umeyama_pose.py``), its hypotheses drawn from one generator on
+the models' device, seeded once from ``train.seed``.  The AP curve plot
+of ``eval_precise`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from givepose_torch.eval.harness import (
 )
 from givepose_torch.eval.load_eval import build_instance_batch
 from givepose_torch.eval.metrics import SYNSET_NAMES
+from givepose_torch.eval.umeyama_pose import umeyama_pose_from_maps
 
 
 def make_inference_fn(model, scale_model, use_scale_net: bool,
@@ -64,40 +68,84 @@ def make_inference_fn(model, scale_model, use_scale_net: bool,
     return infer
 
 
+def make_umeyama_inference_fn(model, is_wild6d: bool = False):
+    """``infer(batch, generator) -> (rt (B,4,4), size (B,3))``: the pose
+    from a RANSAC-Umeyama similarity fit of the predicted NOCS map to the
+    backprojected depth crop (reference tools/umeyama.py:17-60), one call
+    for the batch, its hypotheses drawn from ``generator``.  The size
+    stays the network's, unit-norm.  sRT in the NOCS convention:
+    RT[:3,:3] = s*R, RT[:3,3] = t."""
+
+    @torch.inference_mode()
+    def infer(batch: dict, generator: torch.Generator
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        out = model(batch, is_wild6d=is_wild6d)
+        nocs = out["nocs_coor"].float()                  # (B, R, R, 3)
+        # absolute pixels from the normalized roi_coord_2d grid
+        imh = batch["im_hw"][:, 0][:, None, None]
+        imw = batch["im_hw"][:, 1][:, None, None]
+        px = (batch["roi_coord_2d"][..., 0] * (imw - 1) + (imw - 1)) * 0.5
+        py = (batch["roi_coord_2d"][..., 1] * (imh - 1) + (imh - 1)) * 0.5
+        fit = umeyama_pose_from_maps(
+            nocs, px, py, batch["roi_depth"], batch["roi_mask_out"],
+            batch["cam_K"].float(), generator=generator)
+        b = nocs.shape[0]
+        rt = torch.zeros((b, 4, 4), dtype=torch.float32, device=nocs.device)
+        rt[:, :3, :3] = fit["rotation"] * fit["scale"][:, None, None]
+        rt[:, :3, 3] = fit["translation"]
+        rt[:, 3, 3] = 1.0
+        size = out["size"].float()
+        size = size / torch.linalg.vector_norm(size, dim=1, keepdim=True)
+        return rt, size
+
+    return infer
+
+
 def run_inference(reader, model, scale_model, cfg: Config,
                   source: str = "Real", is_wild6d: bool = False,
                   cache_path: str | None = None, progress=None):
     """Returns the list of per-image result dicts (detection dict +
     pred_RTs/pred_scales), reading the cache if present.  ``model`` and
     ``scale_model`` are in eval mode on one device, which the batches go
-    to."""
+    to.  With ``eval.use_umeyama`` an image without depth is skipped, as
+    the reference does, and the ScaleNet does not run."""
     if cache_path and os.path.exists(cache_path):
         with open(cache_path, "rb") as f:
             return pickle.load(f)
-    if cfg.eval.use_umeyama:
-        raise NotImplementedError(
-            "eval.use_umeyama (the depth-assisted RANSAC-Umeyama pose, "
-            "geometry/umeyama.py) is not ported yet (ROADMAP queue A, "
-            "item 8)")
 
     per_obj_id = None
     if cfg.data.per_obj in SYNSET_NAMES[1:]:
         per_obj_id = SYNSET_NAMES.index(cfg.data.per_obj)
 
     device = next(model.parameters()).device
-    infer = make_inference_fn(model, scale_model, cfg.model.use_scale_net,
-                              is_wild6d)
+    use_umeyama = cfg.eval.use_umeyama
+    if use_umeyama:
+        infer_um = make_umeyama_inference_fn(model, is_wild6d)
+        generator = torch.Generator(device=device).manual_seed(
+            cfg.train.seed)
+
+        def infer(batch):
+            return infer_um(batch, generator)
+    else:
+        infer = make_inference_fn(model, scale_model,
+                                  cfg.model.use_scale_net, is_wild6d)
     results = []
     for i in range(len(reader)):
         item = reader.read(i)
         if item is None:
             continue
         image, det, cam_k = item
+        depth = None
+        if use_umeyama:
+            depth = reader.read_depth(i)
+            if depth is None:
+                continue   # reference skips images without depth
         built = build_instance_batch(
             image, det, cam_k, source, img_size=cfg.data.img_size,
             out_res=cfg.data.out_res, pad_scale=cfg.data.dzi_pad_scale,
             max_instances=cfg.eval.max_instances,
-            resize_full=cfg.model.resize_full, per_obj_id=per_obj_id)
+            resize_full=cfg.model.resize_full, per_obj_id=per_obj_id,
+            depth=depth)
         out = dict(det)
         if built is None:
             # keep ALL pred_* keys consistent at length 0 (the reference

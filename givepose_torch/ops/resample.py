@@ -18,7 +18,12 @@ two-tap interpolation matrices and multiplies them on the MXU.  Here:
     the JAX package's two-tap matrices (``resize_matrix_np``), with TF32
     off (``eval.serving.build_posenet`` turns it off process-wide);
   * the numpy host mirrors (``crop_resize_affine_np``, ``resize_image_np``,
-    ``crop_coord_2d_np``, the eval loader's) are copies.
+    ``crop_coord_2d_np``, the eval loader's) are copies;
+  * the JAX package's public functions (``affine_crop_params``,
+    ``resize_matrix``, ``crop_resize_affine``, ``get_2d_coord_grid``)
+    keep their signatures and layouts and take and return tensors, built
+    on the above: the coefficients and matrices in f32 on the host, the
+    crop a gather (nearest) or the two matmuls (bilinear).
 
 Out-of-image samples are 0 (cv2 BORDER_CONSTANT).
 """
@@ -202,3 +207,88 @@ def crop_coord_2d_np(center, scale, out_res: int, im_w: int,
         & ((sy >= 0) & (sy <= im_h - 1))[:, None]
     out = np.stack([xx, yy], axis=-1).astype(np.float32)
     return out * valid[:, :, None].astype(np.float32)
+
+
+def _host_f32(v) -> np.ndarray:
+    if torch.is_tensor(v):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, np.float32)
+
+
+def affine_crop_params(center, scale, out_size: int):
+    """``affine_crop_params_np`` on tensors: (a, bx, by), f32, on
+    ``center``'s device (the CPU for arrays)."""
+    dev = center.device if torch.is_tensor(center) else None
+    return tuple(torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+                 for v in affine_crop_params_np(_host_f32(center),
+                                                _host_f32(scale), out_size))
+
+
+def resize_matrix(src_size: int, out_size: int, a, b,
+                  method: str = "bilinear",
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(..., out_size, src_size) interpolation matrix for src = a*dst+b,
+    the JAX package's ``resize_matrix``: one-hot rows of the rounded
+    position (nearest; a row outside the source is zero) or the two taps
+    of each row (bilinear; a tap outside is dropped).  Built in f32 on the
+    host, returned as ``dtype`` on ``a``'s device."""
+    a32, b32 = _host_f32(a), _host_f32(b)
+    if method == "nearest":
+        idx = nearest_src(a32, b32, out_size)
+        grid = np.arange(src_size, dtype=np.float32)
+        inb = (idx >= 0) & (idx <= src_size - 1)
+        m = ((grid == idx[..., None]) & inb[..., None]).astype(np.float32)
+    elif method == "bilinear":
+        m = resize_matrix_np(src_size, out_size, a32, b32)
+    else:
+        raise ValueError(f"unknown method: {method}")
+    dev = a.device if torch.is_tensor(a) else None
+    return torch.from_numpy(m).to(device=dev, dtype=dtype)
+
+
+def crop_resize_affine(img: torch.Tensor, center, scale, out_size: int,
+                       method: str = "bilinear") -> torch.Tensor:
+    """Crop-and-resize one image, matching crop_resize_by_warp_affine.
+
+    Args:
+      img: (H, W, C) or (H, W) tensor.
+      center: (2,) crop center (x, y) in source pixels.
+      scale: scalar square crop side in source pixels.
+    Returns:
+      (out_size, out_size, C) (or (out, out)) on ``img``'s device: the
+      nearest crop by ``crop_nearest``, the bilinear one by
+      ``resize_bilinear``.
+    """
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    h, w = img.shape[:2]
+    a, bx, by = affine_crop_params_np(_host_f32(center), _host_f32(scale),
+                                      out_size)
+    if method == "nearest":
+        rows, row_ok = nearest_index(a, by, out_size, h)
+        cols, col_ok = nearest_index(a, bx, out_size, w)
+        out = crop_nearest(img[None], rows[None], row_ok[None], cols[None],
+                           col_ok[None])[0]
+    elif method == "bilinear":
+        wy = resize_matrix(h, out_size, a, by, dtype=img.dtype)
+        wx = resize_matrix(w, out_size, a, bx, dtype=img.dtype)
+        out = resize_bilinear(img[None], wy.to(img.device),
+                              wx.to(img.device))[0]
+    else:
+        raise ValueError(f"unknown method: {method}")
+    return out[..., 0] if squeeze else out
+
+
+def get_2d_coord_grid(width: int, height: int, norm: bool = True,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Normalized pixel grid, layout (2, H, W) with x first (reference
+    tools/dataset_utils.py:8-30 get_2d_coord_np): values in [-1, 1] via
+    (v - (n-1)/2) / ((n-1)/2)."""
+    x = torch.arange(width, dtype=dtype)
+    y = torch.arange(height, dtype=dtype)
+    if norm:
+        x = (x - (width - 1) / 2) / ((width - 1) / 2)
+        y = (y - (height - 1) / 2) / ((height - 1) / 2)
+    return torch.stack([x[None, :].expand(height, width),
+                        y[:, None].expand(height, width)], dim=0)

@@ -1,5 +1,5 @@
 from givepose_torch.train.adam import ClippedAdam
-from givepose_torch.train.ranger import Ranger
+from givepose_torch.train.ranger import Ranger, ranger
 from givepose_torch.train.schedule import flat_and_anneal
 from givepose_torch.train.step import (
     TrainOptimizer,

@@ -124,3 +124,16 @@ class Ranger:
                                "optimizer's")
             for n, t in state[key].items():
                 mine[n] = t.to(device=mine[n].device, dtype=mine[n].dtype)
+
+
+def ranger(params: dict[str, torch.Tensor], learning_rate,
+           weight_decay: float = 0.0, b1: float = 0.95, b2: float = 0.999,
+           eps: float = 1e-5, alpha: float = 0.5, k: int = 6,
+           use_gc: bool = True) -> Ranger:
+    """The JAX package's ``ranger`` factory (GC -> RAdam(+wd) -> -lr ->
+    lookahead) with its hyper-parameters, over ``params``.
+    ``learning_rate`` is a number or a schedule ``step -> lr``."""
+    schedule = (learning_rate if callable(learning_rate)
+                else lambda step: float(learning_rate))
+    return Ranger(params, schedule, weight_decay=weight_decay, b1=b1,
+                  b2=b2, eps=eps, alpha=alpha, k=k, use_gc=use_gc)

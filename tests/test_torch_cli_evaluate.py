@@ -182,11 +182,38 @@ def test_state_dicts_given_directly(trained, first_eval, tmp_path):
     assert os.listdir(out) == ["eval_result_random"]
 
 
+def test_use_umeyama_runs_through_the_cli(trained, tmp_path):
+    """``--eval.use_umeyama 1``: the depth-assisted pose for every image
+    with depth (the fixture writes it; the added empty image has none and
+    is skipped), finite mAP, and the same predictions again from the same
+    seed."""
+    out = str(tmp_path / "u")
+    summary = cli.evaluate(_argv(trained, out, "--eval.use_umeyama", "1"),
+                           backbone_variant="tiny")
+    for part in ("absolute", "relative"):
+        assert summary[part] and all(np.isfinite(v)
+                                     for v in summary[part].values())
+    cache = os.path.join(out, "eval_result_ckpt_1", "pred_result.pkl")
+    with open(cache, "rb") as f:
+        results = pickle.load(f)
+    assert len(results) == 3
+    assert all(len(r["gt_class_ids"]) == 1 for r in results)
+    for r in results:
+        assert r["pred_RTs"].shape == (1, 4, 4)
+        assert np.isfinite(r["pred_RTs"]).all()
+        assert np.linalg.det(r["pred_RTs"][0, :3, :3]) >= 0
+    again = cli.evaluate(_argv(trained, str(tmp_path / "v"),
+                               "--eval.use_umeyama", "1",
+                               "--eval.eval_inference_only", "1"),
+                         backbone_variant="tiny")
+    assert again is None
+    with open(os.path.join(tmp_path, "v", "eval_result_ckpt_1",
+                           "pred_result.pkl"), "rb") as f:
+        for r, a in zip(results, pickle.load(f)):
+            np.testing.assert_array_equal(r["pred_RTs"], a["pred_RTs"])
+
+
 def test_unported_branches_raise(trained, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A, item 8"):
-        cli.evaluate(_argv(trained, str(tmp_path / "u"),
-                           "--eval.use_umeyama", "1"),
-                     backbone_variant="tiny")
     with pytest.raises(NotImplementedError, match="queue A, item 8"):
         cli.evaluate(_argv(trained, str(tmp_path / "p"),
                            "--eval.eval_precise", "1", "--eval.result_dir",

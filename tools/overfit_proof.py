@@ -22,8 +22,18 @@ the schedules stay those of ``--steps``, to measure the scale net alone
 ``OVERFIT_torch_seed<S>.json`` (or ``--out``): the final losses, the
 absolute mAP, the present-class mAP with its pass flags (IoU25 >= 95,
 10°10cm >= 80), GT-substitution diagnostics, each image's
-predicted metric scale over the GT's, the backend and the card's name and
-power limit.  Exits 1 when a bar is missed.
+predicted metric scale over the GT's, both CLIs' logged losses, the
+backend and the card's name and power limit.  Exits 1 when a bar is
+missed.
+
+Before any CUDA work the run asks for repeatable arithmetic
+(``deterministic_setup``): cuDNN's deterministic algorithms and no
+benchmark-driven choice, cuBLAS's fixed workspace
+(``CUBLAS_WORKSPACE_CONFIG=:4096:8``) and PyTorch's deterministic
+implementations where an op has one, with a warning where it has none.
+So two ScaleNet trainings of one seed log equal losses on one card.  The
+DCNv3 backward kernel (``csrc/dcnv3_bwd.cu``) still sums ``d_x`` by f32
+atomics in no fixed order, so PoseNet's half varies between runs.
 """
 
 from __future__ import annotations
@@ -59,6 +69,26 @@ def card_line(device: str) -> str:
             timeout=30).stdout.strip().splitlines()[0]
     except (OSError, subprocess.SubprocessError, IndexError):
         return "nvidia-smi unavailable"
+
+
+def deterministic_setup() -> None:
+    """Repeatable cuDNN, cuBLAS and PyTorch arithmetic for the run; call
+    before the first model is built.  ``warn_only``: an op with no
+    deterministic implementation (the DCNv3 backward's atomics are a
+    custom op, which PyTorch cannot see) warns instead of raising."""
+    import torch
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+
+def loss_log(path: str, keys: tuple) -> list:
+    """``[step, loss...]`` of every line of a CLI's ``metrics.jsonl``."""
+    with open(path) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    return [[r.get("step")] + [r.get(k) for k in keys] for r in rows]
 
 
 def common_flags(data_dir: str, ivfc_dir: str, img_size: int, out_res: int,
@@ -175,6 +205,7 @@ def run(steps: int = 2500, sn_steps: int = 800, seed: int = 0,
     from givepose_torch.data.synthetic import (make_synthetic_eval,
                                                make_synthetic_nocs)
 
+    deterministic_setup()
     if device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available (pass --device cpu)")
     out_json = out_json or f"OVERFIT_torch_seed{seed}.json"
@@ -255,6 +286,10 @@ def run(steps: int = 2500, sn_steps: int = 800, seed: int = 0,
         "sn_steps": sn_steps,
         "final_loss": float(final_loss),
         "final_scale_loss": float(sn_last.get("scale_loss", float("nan"))),
+        "pose_loss_log": loss_log(os.path.join(save, "metrics.jsonl"),
+                                  ("total_loss",)),
+        "scale_loss_log": loss_log(os.path.join(sn_save, "metrics.jsonl"),
+                                   ("scale_loss",)),
         "absolute_mAP": absolute,
         "seed": seed,
         "train_seed": train_seed,
