@@ -119,7 +119,27 @@ Phases, each of which exits non-zero when it fails:
    an image, finite sRTs whose 3 x 3 block is s * R (s >= 0, R a rotation
    within 1e-4), finite mAP; the loop's images/s and, per image, the
    RANSAC-Umeyama fit's wall, CUDA-event and device-busy time and its
-   device time by op.
+   device time by op;
+12. Wild6D: the committed JPEG fixtures (``tests/data/jpeg``) decoded by
+   ``data/jpeg.py`` (no OpenCV here) must match the digests of
+   ``cv2.imread``'s arrays committed beside them; a Wild6D-layout split
+   of 16 frames copied from them (mask PNGs and annotation pickles
+   written by the phase) through ``givepose_torch.cli.evaluate
+   --data.dataset wild6d`` with phase 8's and phase 9's checkpoints and
+   ``--eval.eval_precise 1 --eval.result_dir``: 3 ``dcnv3_fwd`` launches
+   a frame (PoseNet under ``is_wild6d``), finite predictions, ``mAP.png``
+   and ``mAP_Acc.pkl`` read back, one frame's batch through the kernel
+   path against the plain path; decode, read, build and forward times;
+13. PnP: ``ransac_pnp_batch`` on the card recovers phase 11's 16 GT poses
+   from exact GT NOCS <-> pixel correspondences in one call (0.05
+   degrees, 1e-4); its wall and device time per instance;
+14. checkpoint import: a timm-named ConvNeXt-B and a reference-named
+   PoseNet ``.pth`` written from a seed (under the reference key list
+   ``tests/data/reference_posenet_base_keys.json``), loaded through
+   ``load_pretrained_backbone`` / ``load_pretrained_posenet`` into
+   ConvNeXt-B PoseNet with ``gelu_exact=True``, strictly; 3 batch-32
+   requests served (3 ``dcnv3_fwd`` launches each), one against the
+   plain path at phase 4's bars; the load times.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -252,6 +272,10 @@ SCALE_RECAL = 2
 # ConvNeXt-B at 256², 64² maps, every image padded to 24 instance slots
 # (EvalConfig.max_instances)
 EVAL_IMAGES = 16
+# the Wild6D phase: 16 frames copied in turn from the committed JPEG
+# fixtures (640 x 480, the size of Wild6D's and REAL275's frames)
+WILD_FRAMES = 16
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
 EVAL_TIMED = 4             # images timed one by one after the CLI's loop
 EVAL_MAX_INSTANCES = 24
 ARTIFACT_MAX_BYTES = 5 * 2 ** 20
@@ -505,7 +529,7 @@ def serve(model, batches, per_request: dict) -> tuple[list, dict]:
     return outs, counts
 
 
-def run_plain(model, batch) -> dict:
+def run_plain(model, batch, **forward_kw) -> dict:
     """Serve one request with the DCNv3 layers and the int8 MLPs on the
     plain versions."""
     import torch
@@ -514,7 +538,7 @@ def run_plain(model, batch) -> dict:
     set_impl(model, "torch")
     try:
         with torch.inference_mode():
-            plain = model(batch)
+            plain = model(batch, **forward_kw)
         torch.cuda.synchronize()
     finally:
         set_impl(model, "auto")
@@ -527,7 +551,7 @@ def max_diff(a, b) -> float:
     return (a - b).abs().max().item()
 
 
-def compare_paths(model, batch, out, cfg=None) -> dict:
+def compare_paths(model, batch, out, cfg=None, **forward_kw) -> dict:
     """The kernel path against the plain path (DCNv3 and, with
     ``quant_dense``, the int8 MLP), on the card, for the model of ``cfg``
     (default ``ModelConfig()``); returns the f32 copy's outputs.
@@ -545,13 +569,13 @@ def compare_paths(model, batch, out, cfg=None) -> dict:
     from givepose_torch.core.config import ModelConfig
     from givepose_torch.eval.serving import build_posenet
 
-    plain = run_plain(model, batch)
+    plain = run_plain(model, batch, **forward_kw)
     cfg32 = dataclasses.replace(cfg or ModelConfig(), compute_dtype="float32")
     m32 = build_posenet(cfg32, backbone_variant="base",
                         state_dict=model.state_dict())
     with torch.inference_mode():
-        out32 = m32(batch)
-    plain32 = run_plain(m32, batch)
+        out32 = m32(batch, **forward_kw)
+    plain32 = run_plain(m32, batch, **forward_kw)
     del m32
     for k in PARITY_BARS:
         bar32 = PARITY_BARS[k] * (1.0 if k == "rot"
@@ -2880,15 +2904,47 @@ def gt_recovery(data_dir: str) -> str:
     through ``umeyama_pose_from_maps`` on the card in one call must give
     back the GT similarity: scale within 5 %, translation within 0.02,
     rotation within 5 degrees."""
-    import pickle
-
     import numpy as np
     import torch
 
-    from givepose_torch.data import png
-    from givepose_torch.eval import NocsEvalReader, build_instance_batch
     from givepose_torch.eval.umeyama_pose import umeyama_pose_from_maps
     from givepose_torch.geometry import rotation_error_deg
+
+    cols, gts = gt_crops(data_dir)
+    dev = {k: torch.from_numpy(np.stack(v).astype(np.float32)).cuda()
+           for k, v in cols.items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fit = umeyama_pose_from_maps(dev["nocs"], dev["px"], dev["py"],
+                                 dev["depth"], dev["mask"], dev["k"],
+                                 generator=gen)
+    scale = fit["scale"].cpu().numpy()
+    trans = fit["translation"].cpu().numpy()
+    rot_err = rotation_error_deg(fit["rotation"], torch.from_numpy(np.stack(
+        [g["rotations"][0] for g in gts]).astype(np.float32)).cuda())
+    rot_err = rot_err.cpu().numpy()
+    s_err = np.abs(scale / np.array([g["scales"][0] for g in gts]) - 1)
+    t_err = np.abs(trans - np.stack([g["translations"][0]
+                                     for g in gts])).max(1)
+    if not (np.isfinite(scale).all() and (s_err < 0.05).all()
+            and (t_err < 0.02).all() and (rot_err < 5.0).all()):
+        fail(f"GT recovery on the card: scale errors {s_err}, translation "
+             f"errors {t_err}, rotation errors {rot_err} (bars 5 %, 0.02, "
+             f"5 degrees)")
+    return (f"{len(gts)} images in one call: scale within "
+            f"{100 * s_err.max():.3f} %, translation within "
+            f"{t_err.max():.5f}, rotation within {rot_err.max():.3f} deg")
+
+
+def gt_crops(data_dir: str) -> tuple[dict, list]:
+    """Each test image's GT NOCS crop (the fixture's ``_coord.png``
+    cropped as the batch crops depth, 64²), pixel grid, depth crop, mask
+    and intrinsics, and its GT label dict."""
+    import pickle
+
+    import numpy as np
+
+    from givepose_torch.data import png
+    from givepose_torch.eval import NocsEvalReader, build_instance_batch
     from givepose_torch.ops.resample import crop_resize_affine_np
 
     reader = NocsEvalReader("Real", data_dir)
@@ -2914,28 +2970,7 @@ def gt_recovery(data_dir: str) -> str:
         cols["k"].append(batch["cam_K"][0])
         with open(path + "_label.pkl", "rb") as f:
             gts.append(pickle.load(f))
-    dev = {k: torch.from_numpy(np.stack(v).astype(np.float32)).cuda()
-           for k, v in cols.items()}
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    fit = umeyama_pose_from_maps(dev["nocs"], dev["px"], dev["py"],
-                                 dev["depth"], dev["mask"], dev["k"],
-                                 generator=gen)
-    scale = fit["scale"].cpu().numpy()
-    trans = fit["translation"].cpu().numpy()
-    rot_err = rotation_error_deg(fit["rotation"], torch.from_numpy(np.stack(
-        [g["rotations"][0] for g in gts]).astype(np.float32)).cuda())
-    rot_err = rot_err.cpu().numpy()
-    s_err = np.abs(scale / np.array([g["scales"][0] for g in gts]) - 1)
-    t_err = np.abs(trans - np.stack([g["translations"][0]
-                                     for g in gts])).max(1)
-    if not (np.isfinite(scale).all() and (s_err < 0.05).all()
-            and (t_err < 0.02).all() and (rot_err < 5.0).all()):
-        fail(f"GT recovery on the card: scale errors {s_err}, translation "
-             f"errors {t_err}, rotation errors {rot_err} (bars 5 %, 0.02, "
-             f"5 degrees)")
-    return (f"{len(gts)} images in one call: scale within "
-            f"{100 * s_err.max():.3f} %, translation within "
-            f"{t_err.max():.5f}, rotation within {rot_err.max():.3f} deg")
+    return cols, gts
 
 
 def umeyama_phase(pose_ckpt: str, data_dir: str, card: str) -> dict:
@@ -3058,6 +3093,354 @@ def umeyama_phase(pose_ckpt: str, data_dir: str, card: str) -> dict:
         f"wall) [{card}]")
     log("  the fit's device time by op (ms an image): " + "; ".join(
         f"{name[:60]} {ms:.3f}" for ms, name in ops[:8]))
+    return counts
+
+
+def decode_fixtures(reps: int = 5) -> tuple[list, float]:
+    """Phase 12 (i): the committed JPEG fixtures (``tests/data/jpeg``,
+    640 x 480) through ``data/jpeg.py`` on this machine, which has no
+    OpenCV: each array's sha256 must equal the digest cv2's array has
+    where the fixtures were written.  Returns the fixture paths and the
+    mean decode time of a frame (after one warm-up each)."""
+    import hashlib
+
+    from givepose_torch.data import jpeg
+
+    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    paths, times = [], []
+    for name, want in sorted(digests.items()):
+        path = os.path.join(JPEG_FIXTURES, name)
+        img = jpeg.imread(path)
+        if img is None or list(img.shape) != want["shape"] or \
+                hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"]:
+            fail(f"{name}: data/jpeg.py's array differs from cv2.imread's "
+                 f"digest")
+        for _ in range(reps):
+            t = time.perf_counter()
+            jpeg.imread(path)
+            times.append(time.perf_counter() - t)
+        paths.append(path)
+    return paths, 1e3 * sum(times) / len(times)
+
+
+def wild6d_phase(pose_ckpt: str, scale_ckpt: str, card: str) -> dict:
+    """Phase 12: the Wild6D eval path.  (i) ``decode_fixtures``; (ii) a
+    Wild6D-layout split of 16 frames copied from them, with mask PNGs and
+    annotation pickles (``make_synthetic_wild6d``); (iii)
+    ``cli.evaluate --data.dataset wild6d`` in this process with phase 8's
+    and phase 9's checkpoints (ConvNeXt-B at 256², ``is_wild6d``) and
+    ``--eval.eval_precise 1 --eval.result_dir``: 3 ``dcnv3_fwd`` launches
+    a frame, finite predictions, ``mAP.png`` (800 x 350) and
+    ``mAP_Acc.pkl`` (the summary's arrays) read back; one frame's batch
+    through the kernel path against the plain path (phase 10's bars);
+    per frame the decode, the read, the build and the forward's wall,
+    CUDA-event and device-busy time.  Returns the launches of the CLI's
+    run."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from givepose_torch.cli.train import split_device_flag
+    from givepose_torch.core.config import Config, parse_overrides
+    from givepose_torch.data import jpeg, png
+    from givepose_torch.data.synthetic import make_synthetic_wild6d
+    from givepose_torch.eval import (WildEvalReader, build_instance_batch,
+                                     make_inference_fn)
+    from givepose_torch.eval.serving import build_posenet
+    from givepose_torch.models.scale_net import build_scalenet
+
+    t0 = time.time()
+    frames, decode_ms = decode_fixtures()
+    log(f"  (i) {len(frames)} committed JPEG frames (640 x 480) decoded "
+        f"bitwise as cv2.imread (digests), {decode_ms:.2f} ms a frame "
+        f"[{card}], in {time.time() - t0:.1f} s")
+    root = os.path.join(ROOT, "build", "chip_smoke_wild6d")
+    shutil.rmtree(root, ignore_errors=True)
+    make_synthetic_wild6d(os.path.join(root, "data"), frames,
+                          n_frames=WILD_FRAMES, seed=0)
+    plots = os.path.join(root, "plots")
+    os.makedirs(plots)
+    argv = ["--data.dataset", "wild6d", "--dataset_dir",
+            os.path.join(root, "data"), "--model_save",
+            os.path.join(root, "out"), "--resume_model", pose_ckpt,
+            "--sn_path", scale_ckpt, "--eval.eval_precise", "1",
+            "--eval.result_dir", plots, *CLI_FLAGS]
+    summary, loop, counts, eval_s = timed_evaluate(argv)
+    with open(os.path.join(root, "out", "eval_result_ckpt_4",
+                           "pred_result_all.pkl"), "rb") as f:
+        results = pickle.load(f)
+    if len(results) != WILD_FRAMES or loop["n"] != WILD_FRAMES:
+        fail(f"{len(results)} Wild6D results, expected {WILD_FRAMES}")
+    check_counts(counts, {"dcnv3_fwd": 3 * WILD_FRAMES},
+                 f"the Wild6D eval of {WILD_FRAMES} frames")
+    for r in results:
+        if r["pred_RTs"].shape != (1, 4, 4) or not (
+                np.isfinite(r["pred_RTs"]).all()
+                and np.isfinite(r["pred_scales"]).all()):
+            fail(f"Wild6D predictions {r['pred_RTs']}, {r['pred_scales']}")
+    figure = png.imread(os.path.join(plots, "mAP.png"))
+    with open(os.path.join(plots, "mAP_Acc.pkl"), "rb") as f:
+        acc = pickle.load(f)
+    if figure is None or figure.shape != (350, 800, 3) or not all(
+            np.array_equal(acc[k], summary[k], equal_nan=True)
+            for k in ("iou_aps", "pose_aps")) or len(
+                acc["degree_thres_list"]) != 71:
+        fail("mAP.png / mAP_Acc.pkl of eval_precise")
+
+    cfg = parse_overrides(Config(), split_device_flag(argv)[0])
+    saved = torch.load(pose_ckpt, map_location="cpu", weights_only=True)
+    sn_saved = torch.load(scale_ckpt, map_location="cpu", weights_only=True)
+    model = build_posenet(cfg.model, "base", state_dict=saved["model"])
+    scale_model = build_scalenet(state_dict=sn_saved["model"])
+    reader = WildEvalReader(os.path.join(root, "data"))
+
+    def build(item):
+        return build_instance_batch(
+            *item, "Real", img_size=cfg.data.img_size,
+            out_res=cfg.data.out_res, max_instances=cfg.eval.max_instances)
+
+    built = build(reader.read(0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in built[0].items()}
+    with torch.inference_mode():
+        kernel_out = model(batch, is_wild6d=True)
+    compare_paths(model, batch, kernel_out, is_wild6d=True)
+
+    infer = make_inference_fn(model, scale_model, True, is_wild6d=True)
+    for _ in range(3):
+        infer(batch)
+    torch.cuda.synchronize()
+    rows = []
+    for i in range(EVAL_TIMED):
+        cat, pkl_path = reader.samples[i]
+        name = os.path.basename(pkl_path)[:-4].split("-")
+        jpg = os.path.join(root, "data", "test_set", cat,
+                           "/".join(name[1:-1]), "images", f"{name[-1]}.jpg")
+        t = time.perf_counter()
+        jpeg.imread(jpg)
+        t_dec = time.perf_counter() - t
+        t = time.perf_counter()
+        item = reader.read(i)
+        t_read = time.perf_counter() - t
+        t = time.perf_counter()
+        built = build(item)
+        t_build = time.perf_counter() - t
+        b = {k: torch.from_numpy(v).cuda() for k, v in built[0].items()}
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        infer(b)
+        end.record()
+        torch.cuda.synchronize()
+        rows.append((1e3 * t_dec, 1e3 * t_read, 1e3 * t_build,
+                     1e3 * (time.perf_counter() - t),
+                     start.elapsed_time(end)))
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            infer(batch)
+        torch.cuda.synchronize()
+    busy = device_busy_ms(prof) / 3
+    mean = [sum(r[j] for r in rows) / len(rows) for j in range(5)]
+    log(f"  (ii, iii) cli.evaluate --data.dataset wild6d: {eval_s:.1f} s "
+        f"with the models' build; launches {counts}; predictions finite; "
+        f"mAP.png {figure.shape[1]} x {figure.shape[0]} and mAP_Acc.pkl "
+        f"read back; absolute mAP {summary['absolute']}")
+    log(f"  Wild6D eval loop ({loop['n']} frames): {loop['s']:.3f} s, "
+        f"{loop['n'] / loop['s']:.2f} images/s [{card}]")
+    log(f"  per frame (mean of {EVAL_TIMED}): JPEG decode {mean[0]:.2f} ms, "
+        f"read (decode, mask, annotation) {mean[1]:.2f} ms, build "
+        f"{mean[2]:.2f} ms, the forward {mean[3]:.2f} ms wall, "
+        f"{mean[4]:.2f} ms by CUDA events, device busy {busy:.3f} ms "
+        f"[{card}]")
+    return counts
+
+
+def pnp_phase(data_dir: str, card: str) -> str:
+    """Phase 13: ``ransac_pnp_batch`` on the card over phase 11's 16 GT
+    NOCS crops, each masked cell's pixel the exact projection of its GT
+    camera point (s R x + t through the image's intrinsics): every pose
+    recovered within 0.05 degrees and 1e-4 (the exact-correspondence bars
+    of ``tests/test_torch_pnp.py``), in one call; the call's wall and
+    device time per instance."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from givepose_torch.eval.pnp import ransac_pnp_batch
+
+    cols, gts = gt_crops(data_dir)
+    nocs, masks, pxs, pys, ks, scales = [], [], [], [], [], []
+    rots = np.stack([g["rotations"][0] for g in gts]).astype(np.float64)
+    trans = np.stack([g["translations"][0] for g in gts]).astype(np.float64)
+    for i, g in enumerate(gts):
+        x = cols["nocs"][i].astype(np.float64)
+        cam = g["scales"][0] * x @ rots[i].T + trans[i]
+        k = np.asarray(cols["k"][i], np.float64)
+        pxs.append(k[0, 0] * cam[..., 0] / cam[..., 2] + k[0, 2])
+        pys.append(k[1, 1] * cam[..., 1] / cam[..., 2] + k[1, 2])
+        nocs.append(cols["nocs"][i])
+        masks.append(cols["mask"][i])
+        ks.append(k)
+        scales.append(g["scales"][0])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def solve():
+        return ransac_pnp_batch(nocs, pxs, pys, masks, ks, scales,
+                                generator=gen)
+
+    got_r, got_t, ok = solve()
+    rel = np.einsum("bji,bjk->bik", got_r.astype(np.float64), rots)
+    angle = 2 * np.degrees(np.arcsin(np.clip(np.linalg.norm(
+        rel - np.eye(3), axis=(1, 2)) / (2 * np.sqrt(2)), 0, 1)))
+    t_err = np.abs(got_t - trans).max(1)
+    if not ok.all() or (angle > 0.05).any() or (t_err > 1e-4).any():
+        fail(f"PnP GT recovery on the card: ok {ok}, rotation errors "
+             f"{angle} deg, translation errors {t_err} (bars 0.05, 1e-4)")
+    for _ in range(2):
+        solve()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        solve()
+        torch.cuda.synchronize()
+    n = len(gts)
+    pts = int(sum((m > 0).sum() for m in masks))
+    wall = sum(walls) / len(walls)
+    return (f"{n} instances ({pts} masked cells, 100 minimal sets of 5 "
+            f"each) in one call: rotation within {angle.max():.5f} deg, "
+            f"translation within {t_err.max():.2e}; wall {wall:.2f} ms "
+            f"({wall / n:.3f} ms an instance, min "
+            f"{min(walls) / n:.3f}), device busy "
+            f"{device_busy_ms(prof):.3f} ms "
+            f"({device_busy_ms(prof) / n:.3f} ms an instance) [{card}]")
+
+
+# a reference ConvNeXt-B PoseNet checkpoint's keys, shapes and dtypes,
+# which tests/test_torch_convert_weights.py holds to its oracle
+REFERENCE_KEYS = os.path.join(ROOT, "tests", "data",
+                              "reference_posenet_base_keys.json")
+
+
+def reference_state_dict(state: dict) -> dict:
+    """The port's PoseNet ``state_dict`` ``state`` under the reference
+    checkpoint's names and layouts (``REFERENCE_KEYS``).  Where each port
+    tensor comes from is read off ``convert_posenet`` itself, by two
+    probes of the key list: every reference tensor filled with its own
+    index, then with its elements' flat positions.  Keys the converter
+    skips (each DCNv3 wrapper's dead ``bn``, the heads' GN ``norm.*``
+    aliases, ``num_batches_tracked``) are written as zeros."""
+    import numpy as np
+    import torch
+
+    from givepose_torch.models.convert_weights import convert_posenet
+
+    with open(REFERENCE_KEYS) as f:
+        keys = json.load(f)
+    names = sorted(keys)
+    floats = [n for n in names if keys[n][1].startswith("float")]
+    biggest = max(math.prod(keys[n][0]) for n in floats)
+    if biggest >= 1 << 24:
+        fail(f"a reference tensor of {biggest} elements: positions are "
+             f"not exact in f32")
+
+    def probe(fill) -> dict:
+        return convert_posenet({
+            n: (fill(i, keys[n][0]) if n in floats
+                else np.zeros(keys[n][0], keys[n][1]))
+            for i, n in enumerate(names)})
+
+    index = probe(lambda i, shape: np.full(shape, i, np.float32))
+    position = probe(lambda i, shape: np.arange(
+        math.prod(shape), dtype=np.float32).reshape(shape))
+    out = {n: torch.zeros(keys[n][0], dtype=getattr(torch, keys[n][1]))
+           for n in names}
+    for key, v in state.items():
+        if not v.is_floating_point():
+            continue
+        src = index[key].unique()
+        if src.numel() != 1:
+            fail(f"{key} is not one reference tensor's copy")
+        name = names[int(src)]
+        pos = position[key].reshape(-1).long()
+        flat = out[name].reshape(-1)
+        if not torch.equal(pos.sort().values,
+                           torch.arange(flat.numel())):
+            fail(f"{key} is not a permutation of {name}")
+        flat[pos] = v.reshape(-1).to(flat.dtype)
+    return out
+
+
+def pretrained_phase(card: str) -> dict:
+    """Phase 14: checkpoint import.  A timm-named ConvNeXt-B and a
+    reference-named ConvNeXt-B PoseNet ``.pth`` (seeded weights, DCNv3
+    projections perturbed) are written with ``torch.save`` into
+    ``build/``, loaded through ``load_pretrained_backbone`` and
+    ``load_pretrained_posenet`` into PoseNet under
+    ``ModelConfig(gelu_exact=True)``, strictly, every weight equal to the
+    one written; 3 batch-32 requests served (3 ``dcnv3_fwd`` launches
+    each) and one held against the plain path at phase 4's bars.  Returns
+    the serving launches."""
+    import torch
+
+    from givepose_torch.core.config import ModelConfig
+    from givepose_torch.eval.serving import (build_posenet,
+                                             example_serving_batch)
+    from givepose_torch.models.convert_weights import (
+        load_pretrained_backbone, load_pretrained_posenet)
+
+    root = os.path.join(ROOT, "build", "chip_smoke_pretrained")
+    os.makedirs(root, exist_ok=True)
+    cfg = ModelConfig(gelu_exact=True)
+    source = build_posenet(cfg, "base", seed=7)
+    perturb_dcn(source, seed=8)
+    written = {k: v.detach().cpu() for k, v in source.state_dict().items()}
+    del source
+    reference = reference_state_dict(written)
+    backbone = {k[len("backbone."):]: v for k, v in reference.items()
+                if k.startswith("backbone.")}
+    backbone["head.fc.weight"] = torch.zeros(1000, 1024)
+    pth = os.path.join(root, "givepose_posenet.pth")
+    timm_pth = os.path.join(root, "convnext_base_timm.pth")
+    torch.save({"state_dict": reference, "epoch": 1}, pth)
+    torch.save(backbone, timm_pth)
+
+    t0 = time.perf_counter()
+    state = load_pretrained_posenet(pth)
+    t_pose = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bb = load_pretrained_backbone(timm_pth)
+    t_bb = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = build_posenet(cfg, "base", state_dict=state)
+    model.backbone.load_state_dict(bb, strict=True)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    got = model.state_dict()
+    for k, v in written.items():
+        if not torch.equal(got[k].cpu(), v):
+            fail(f"{k} differs after the reference checkpoint's import")
+    batches = [example_serving_batch(BATCH, seed=10 + s)
+               for s in range(REQUESTS)]
+    outs, counts = serve(model, batches, {"dcnv3_fwd": 3})
+    compare_paths(model, batches[0], outs[0], cfg)
+    log(f"  {len(reference)} reference keys ({len(written)} of the port's) "
+        f"and {len(backbone)} timm keys written; load_pretrained_posenet "
+        f"{t_pose:.2f} s, load_pretrained_backbone {t_bb:.2f} s, the "
+        f"model's build and strict loads {t_build:.2f} s [{card}]; every "
+        f"weight equal to the one written; {REQUESTS} requests of batch "
+        f"{BATCH}, launches {counts}, outputs finite")
     return counts
 
 
@@ -3290,6 +3673,23 @@ def main(argv: list[str]) -> None:
     log(f"phase umeyama: GT recovery and givepose_torch.cli.evaluate "
         f"--eval.use_umeyama 1 on {EVAL_IMAGES} images, in "
         f"{time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    wild_counts = wild6d_phase(pose_ckpt, scale_ckpt, card)
+    log(f"phase wild6d: JPEG fixtures against their digests and "
+        f"givepose_torch.cli.evaluate --data.dataset wild6d on "
+        f"{WILD_FRAMES} frames with the AP plot, in "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    log(f"  {pnp_phase(eval_dir, card)}")
+    log(f"phase pnp: ransac_pnp_batch on the card recovers the "
+        f"{EVAL_IMAGES} GT poses, in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    pretrained_counts = pretrained_phase(card)
+    log(f"phase pretrained: timm and reference checkpoints imported into "
+        f"ConvNeXt-B PoseNet (gelu_exact) and served, in "
+        f"{time.time() - t0:.1f} s")
     log(f"all phases ok in {time.time() - start:.1f} s")
 
     def bound_by(t):
@@ -3307,7 +3707,10 @@ def main(argv: list[str]) -> None:
                              "train": train_counts["dcnv3_fwd"],
                              "train_cli": cli_counts["dcnv3_fwd"],
                              "eval": eval_counts["dcnv3_fwd"],
-                             "eval_umeyama": umeyama_counts["dcnv3_fwd"]},
+                             "eval_umeyama": umeyama_counts["dcnv3_fwd"],
+                             "eval_wild6d": wild_counts["dcnv3_fwd"],
+                             "serve_pretrained":
+                                 pretrained_counts["dcnv3_fwd"]},
         "max_abs_err": max(max_err, tot["err"]),
         "max_err": max(max_err, tot["err"]),
         # per PoseNet forward at batch 32: the three layers summed

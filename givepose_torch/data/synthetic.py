@@ -228,3 +228,55 @@ def make_synthetic_eval(root: str, n_images: int = 3, seed: int = 1):
                 "wb") as f:
             pickle.dump(det, f)
     return data_dir, ivfc_dir
+
+
+WILD6D_CATEGORIES = ("bottle", "bowl", "camera", "laptop", "mug")
+
+
+def make_synthetic_wild6d(root: str, frames: list, n_frames: int = 16,
+                          seed: int = 0) -> str:
+    """A Wild6D-layout test split (evaluation/load_data_eval_wild.py) of
+    ``n_frames`` frames: ``test_set/<cat>/<video>/images/<frame>.jpg``
+    copied in turn from the JPEG files ``frames`` (this writer has no JPEG
+    encoder), a mask PNG a frame (one box in the red channel, the
+    reader's ``mask[:, :, 2]``), and
+    ``pkl_annotations/<cat>/<cat>-<video>-<frame>.pkl`` with REAL275's
+    intrinsics and a seeded GT pose and size in front of the camera.
+    Categories go round ``WILD6D_CATEGORIES``.  Returns the split's
+    root."""
+    rng = np.random.default_rng(seed)
+    for i in range(n_frames):
+        with open(frames[i % len(frames)], "rb") as f:
+            data = f.read()
+        cat = WILD6D_CATEGORIES[i % len(WILD6D_CATEGORIES)]
+        video, frame = f"{i // 5:04d}/{i % 3}", f"{i:04d}"
+        base = os.path.join(root, "test_set", cat, video)
+        for sub in ("images", "masks"):
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+        with open(os.path.join(base, "images", f"{frame}.jpg"), "wb") as f:
+            f.write(data)
+        y0, x0 = rng.integers(60, 240), rng.integers(80, 380)
+        hh, ww = rng.integers(80, 200), rng.integers(80, 220)
+        mask = np.zeros((480, 640, 3), np.uint8)
+        mask[y0:y0 + hh, x0:x0 + ww, 2] = 255
+        png.imwrite(os.path.join(base, "masks", f"{frame}.png"), mask)
+        angles = rng.uniform(-np.pi, np.pi, 3)
+        cx, cy, cz = np.cos(angles)
+        sx, sy, sz = np.sin(angles)
+        rot = (np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+               @ np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+               @ np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]]))
+        depth = rng.uniform(0.5, 1.2)
+        centre = np.array([x0 + ww / 2, y0 + hh / 2, 1.0])
+        rt = np.eye(4)
+        rt[:3, :3] = rot * rng.uniform(0.1, 0.3)
+        rt[:3, 3] = depth * (np.linalg.inv(REAL_K) @ centre)
+        size = rng.uniform(0.5, 1.0, 3)
+        ann = {"K": REAL_K.copy(), "gt_RTs": rt[None],
+               "gt_scales": (size / np.linalg.norm(size))[None]}
+        ann_dir = os.path.join(root, "pkl_annotations", cat)
+        os.makedirs(ann_dir, exist_ok=True)
+        name = f"{cat}-{video.replace('/', '-')}-{frame}.pkl"
+        with open(os.path.join(ann_dir, name), "wb") as f:
+            pickle.dump(ann, f)
+    return root

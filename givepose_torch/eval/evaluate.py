@@ -13,8 +13,9 @@ slots, the JAX package's static shape) on the models' device, under
 there too.  With ``eval.use_umeyama`` the pose comes instead from a
 RANSAC-Umeyama fit of the predicted NOCS map to the image's depth
 (``eval/umeyama_pose.py``), its hypotheses drawn from one generator on
-the models' device, seeded once from ``train.seed``.  The AP curve plot
-of ``eval_precise`` is not ported yet and raises.
+the models' device, seeded once from ``train.seed``.  With
+``eval_precise`` and ``eval.result_dir``, the AP curves are drawn into
+``mAP.png`` beside ``mAP_Acc.pkl`` (``eval/visualize.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from givepose_torch.eval.harness import (
 from givepose_torch.eval.load_eval import build_instance_batch
 from givepose_torch.eval.metrics import SYNSET_NAMES
 from givepose_torch.eval.umeyama_pose import umeyama_pose_from_maps
+from givepose_torch.eval.visualize import plot_map_curves
 
 
 def make_inference_fn(model, scale_model, use_scale_net: bool,
@@ -187,14 +189,6 @@ def evaluate_results(results, cfg: Config, log=print):
         degree_thrs = (5, 10, 360)
         shift_thrs = (5, 10, 1e4)
         iou_thrs = (0.1, 0.25, 0.5, 0.75)
-    if cfg.eval.result_dir and cfg.eval.eval_precise:
-        # the JAX package plots the precise sweep's AP curves here
-        # (eval/visualize.py, matplotlib, which the GPU machine lacks)
-        raise NotImplementedError(
-            "the AP curve plot of eval_precise with eval.result_dir "
-            "(eval/visualize.py) is not ported yet (ROADMAP queue A, "
-            "item 8); unset eval.result_dir")
-
     cls_idx = -1
     if cfg.data.per_obj in SYNSET_NAMES:
         cls_idx = SYNSET_NAMES.index(cfg.data.per_obj)
@@ -224,5 +218,13 @@ def evaluate_results(results, cfg: Config, log=print):
                          iou_thrs, cls_idx)
     log("scale-normalized mAP (shift in % of diameter): "
         + ", ".join(f"{k}={v:.1f}" for k, v in relative.items()))
+
+    # plot only full-resolution curves (the sparse default threshold
+    # lists carry 360deg/1e4cm sentinels that would render as 3-point
+    # lines; the reference only plots the precise sweep)
+    if cfg.eval.result_dir and cfg.eval.eval_precise:
+        png_path = plot_map_curves(iou_aps, pose_aps, cfg.eval.result_dir,
+                                   iou_thrs, degree_thrs, shift_thrs)
+        log(f"AP curves: {png_path}")
     return {"absolute": absolute, "relative": relative,
             "iou_aps": iou_aps, "pose_aps": pose_aps}

@@ -13,13 +13,12 @@ reference instead runs ragged per-image batches (eval_batch_size=1 +
 identity collate, evaluate.py:84-90).
 
 Port of ``givepose_tpu/eval/load_eval.py``.  Images are read by
-``data/png.py`` (what ``cv2.imread`` returns, without OpenCV): the colour
-image as BGR, flipped to RGB; depth with ``unchanged=True``, so a 16-bit
-PNG stays uint16 and a 3-channel composite keeps its channels.  Crops go
-through the same ``ops/resample.py`` host mirrors, so a batch equals the
-JAX reader's bitwise.  Wild6D's frames are JPEG files, which the port
-cannot decode yet (no OpenCV, PIL or torchvision on the GPU machine): a
-frame whose bytes are JPEG raises ``NotImplementedError``.
+``data/png.py`` and ``data/jpeg.py`` (what ``cv2.imread`` returns,
+without OpenCV; Wild6D's frames are JPEG files): the colour image as BGR,
+flipped to RGB; depth with ``unchanged=True``, so a 16-bit PNG stays
+uint16 and a 3-channel composite keeps its channels.  Crops go through
+the same ``ops/resample.py`` host mirrors, so a batch equals the JAX
+reader's bitwise.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ import pickle
 
 import numpy as np
 
-from givepose_torch.data import png
+from givepose_torch.data import jpeg, png
 from givepose_torch.data.records import (
     CAMERA_K,
     REAL_K,
@@ -52,17 +51,16 @@ _JPEG_SOI = b"\xff\xd8\xff"
 
 
 def imread(path: str, unchanged: bool = False) -> np.ndarray | None:
-    """``cv2.imread(path)`` (``-1`` with ``unchanged``) for PNG files; a
-    JPEG file raises, since the port has no JPEG decoder."""
+    """``cv2.imread(path)`` (``-1`` with ``unchanged``): JPEG bytes go to
+    ``data/jpeg.py``, anything else to ``data/png.py``, as cv2 picks its
+    decoder by content, not by the file's name."""
     try:
         with open(path, "rb") as f:
             head = f.read(3)
     except OSError:
         return None
     if head == _JPEG_SOI:
-        raise NotImplementedError(
-            f"{path} is a JPEG file: the port reads PNG only (Wild6D's JPEG "
-            "frames need a decoder; ROADMAP queue A, item 8)")
+        return jpeg.imread(path, unchanged=unchanged)
     return png.imread(path, unchanged=unchanged)
 
 

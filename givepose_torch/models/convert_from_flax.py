@@ -96,8 +96,9 @@ def torch_key(flax_path: str) -> str:
         "/", ".")
 
 
-def _torch_tree(tree, into: dict | None = None) -> dict[str, torch.Tensor]:
-    """Flax-layout tree of arrays -> {torch key: f32 tensor}."""
+def _torch_tree(tree, into: dict | None = None,
+                dtype=np.float32) -> dict[str, torch.Tensor]:
+    """Flax-layout tree of arrays -> {torch key: tensor of ``dtype``}."""
     out = {} if into is None else into
     for path, v in _flatten(dict(tree)).items():
         key = torch_key(path)
@@ -105,16 +106,17 @@ def _torch_tree(tree, into: dict | None = None) -> dict[str, torch.Tensor]:
             raise KeyError(f"two flax leaves map to {key}")
         leaf = path.rsplit("/", 1)[-1]
         out[key] = torch.from_numpy(
-            np.array(_convert_leaf(leaf, v), dtype=np.float32, order="C"))
+            np.array(_convert_leaf(leaf, v), dtype=dtype, order="C"))
     return out
 
 
-def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+def flax_to_state_dict(variables: dict,
+                       dtype=np.float32) -> dict[str, torch.Tensor]:
     """{'params', 'batch_stats'} of the JAX PoseNet or ScaleNet -> torch
-    state_dict."""
+    state_dict, its floating tensors in ``dtype``."""
     state: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
-        _torch_tree(variables.get(collection, {}), state)
+        _torch_tree(variables.get(collection, {}), state, dtype)
     for key in list(state):
         if key.endswith(".running_mean"):
             state[key[:-len("running_mean")] + "num_batches_tracked"] = \

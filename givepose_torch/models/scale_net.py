@@ -5,7 +5,9 @@ towers over the roi crop (``feat_encoder_bbox``) and the resized full
 image (``feat_encoder_full``), each feature through dropout 0.2, then
 ``line1`` (128) -> ReLU -> [one-hot] -> ``line2`` (``feat_dim``) -> ReLU ->
 [one-hot, roi (w, h) / 100] -> ``line3``, a scalar residual over
-``||mean_size||``.  f32 end to end.
+``||mean_size||``.  f32 end to end as built; the head computes in its
+parameters' dtype, so a float64 copy (parameters, buffers and every
+layer's ``compute_dtype``) evaluates the whole net in float64.
 
 A full image of batch 1 beside a batch of instances (the eval loader's
 layout, one shared ``full_img[None]``) runs its tower once and is
@@ -49,9 +51,10 @@ class ScaleNet(nn.Module):
         if train and generator is None:
             raise ValueError("train=True needs a torch.Generator on the "
                              "model's device for the dropout masks")
+        dt = self.line1.weight.dtype
         roi = batch["roi_img"]
         full = batch["full_img"]
-        one_hot = batch["one_hot"].float()
+        one_hot = batch["one_hot"].to(dt)
 
         feat_roi = self.feat_encoder_bbox(roi, train)
         feat_full = self.feat_encoder_full(full, train)
@@ -60,17 +63,17 @@ class ScaleNet(nn.Module):
         if train:
             feat_roi = self._dropout(feat_roi, generator)
             feat_full = self._dropout(feat_full, generator)
-        feat = torch.cat([feat_roi, feat_full], dim=-1).float()
+        feat = torch.cat([feat_roi, feat_full], dim=-1).to(dt)
 
         x = F.relu(self.line1(feat))
         x = torch.cat([x, one_hot], dim=-1)
         x = F.relu(self.line2(x))
         x = torch.cat([x, one_hot], dim=-1)
         if self.use_hw:
-            hw = batch["roi_wh"].float() / 100.0
+            hw = batch["roi_wh"].to(dt) / 100.0
             x = torch.cat([x, hw], dim=-1)
         resid = self.line3(x)[:, 0]
-        mean_scale = torch.linalg.vector_norm(batch["mean_size"].float(),
+        mean_scale = torch.linalg.vector_norm(batch["mean_size"].to(dt),
                                               dim=1)
         return resid + mean_scale
 

@@ -3,11 +3,15 @@ CPU, end to end: checkpoints written by the port's own ``cli/train.py``
 (tiny ConvNeXt, one step) and ``cli/train_scale.py`` (two steps), the
 fixture's test split with one more image whose detections are empty, and
 ``--device cpu``.  The eval path's parity with the JAX package's is held in
-``tests/test_torch_eval.py``.
+``tests/test_torch_eval.py``; the Wild6D case (``--data.dataset wild6d``,
+JPEG frames from ``tests/data/jpeg``) is held against the JAX CLI run
+with the same two models as stand-ins (``jax.disable_jit``), its mAP
+arrays within 1e-6.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import pickle
 import shutil
@@ -24,6 +28,8 @@ from givepose_torch.eval import evaluate as eval_path
 torch.set_num_threads(2)
 
 IMG = 64
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "data", "jpeg")
 
 
 def _add_empty_image(data_dir):
@@ -213,12 +219,109 @@ def test_use_umeyama_runs_through_the_cli(trained, tmp_path):
             np.testing.assert_array_equal(r["pred_RTs"], a["pred_RTs"])
 
 
-def test_unported_branches_raise(trained, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A, item 8"):
-        cli.evaluate(_argv(trained, str(tmp_path / "p"),
-                           "--eval.eval_precise", "1", "--eval.result_dir",
-                           str(tmp_path / "plots")),
+@pytest.fixture(scope="module")
+def wild(tmp_path_factory):
+    """A Wild6D-layout split of 5 JPEG frames, one a category."""
+    from givepose_torch.data.synthetic import make_synthetic_wild6d
+
+    root = str(tmp_path_factory.mktemp("wild6d"))
+    frames = sorted(glob.glob(os.path.join(JPEG_FIXTURES, "*.jpg")))
+    return make_synthetic_wild6d(root, frames, n_frames=5, seed=0)
+
+
+class _JaxStandIn:
+    """``apply(variables, batch, **kw)`` of a port model on jnp arrays
+    (runs only under ``jax.disable_jit``)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def apply(self, variables, batch, **kw):
+        import jax.numpy as jnp
+
+        tb = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+        with torch.no_grad():
+            out = self.model(tb, **kw)
+        if isinstance(out, dict):
+            return {k: jnp.asarray(v.numpy()) for k, v in out.items()}
+        return jnp.asarray(out.numpy())
+
+
+def test_wild6d_equals_the_jax_cli(trained, wild, tmp_path):
+    """``--data.dataset wild6d``: the JPEG frames read, PoseNet run under
+    ``is_wild6d``, the mAP arrays within 1e-6 of the JAX CLI's."""
+    import jax
+    from givepose_torch.eval.serving import build_posenet
+    from givepose_torch.models.scale_net import build_scalenet
+    from givepose_tpu.cli import evaluate as jax_cli
+
+    extra = ("--data.dataset", "wild6d", "--dataset_dir", wild)
+    summary = cli.evaluate(_argv(trained, str(tmp_path / "port"), *extra),
+                           backbone_variant="tiny")
+    cache = os.path.join(tmp_path, "port", "eval_result_ckpt_1",
+                         "pred_result_all.pkl")
+    with open(cache, "rb") as f:
+        results = pickle.load(f)
+    assert len(results) == 5
+    assert all(np.isfinite(r["pred_RTs"]).all() for r in results)
+
+    argv, _ = split_device_flag(_argv(trained, str(tmp_path / "jax"),
+                                      *extra))
+    cfg = parse_overrides(Config(), argv)
+    posenet = build_posenet(cfg.model, "tiny", device="cpu", img_size=IMG,
+                            state_dict=torch.load(trained["ckpt"],
+                                                  weights_only=True)["model"])
+    scalenet = build_scalenet(device="cpu", state_dict=torch.load(
+        trained["sn_ckpt"], weights_only=True)["model"])
+    calls = []
+
+    def posenet_stand_in(cfg, backbone_variant):
+        stand_in = _JaxStandIn(posenet)
+        apply = stand_in.apply
+        stand_in.apply = lambda v, b, **kw: (calls.append(kw), apply(v, b,
+                                                                     **kw))[1]
+        return stand_in
+
+    with pytest.MonkeyPatch.context() as mp, jax.disable_jit():
+        mp.setattr(jax_cli, "PoseNet", posenet_stand_in)
+        mp.setattr(jax_cli, "ScaleNet", lambda **kw: _JaxStandIn(scalenet))
+        ref = jax_cli.evaluate(argv, backbone_variant="tiny",
+                               posenet_variables={}, scalenet_variables={})
+    assert calls and all(kw == {"is_wild6d": True} for kw in calls)
+    for k in ("iou_aps", "pose_aps"):
+        assert summary[k].shape == np.asarray(ref[k]).shape
+        np.testing.assert_allclose(summary[k], np.asarray(ref[k]), rtol=0,
+                                   atol=1e-6)
+    assert summary["absolute"].keys() == ref["absolute"].keys()
+
+
+def test_unported_branches_raise(trained, wild, tmp_path):
+    """A progressive JPEG frame, which the port does not decode, raises
+    naming its ROADMAP item; ``eval_precise`` with ``eval.result_dir``,
+    which raised before the plot was ported, writes ``mAP.png`` and
+    ``mAP_Acc.pkl``."""
+    import cv2
+
+    root = str(tmp_path / "wild_progressive")
+    shutil.copytree(wild, root)
+    frame = glob.glob(os.path.join(root, "test_set", "*", "*", "*",
+                                   "images", "*.jpg"))[0]
+    cv2.imwrite(frame, cv2.imread(frame), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        cli.evaluate(_argv(trained, str(tmp_path / "w"), "--data.dataset",
+                           "wild6d", "--dataset_dir", root),
                      backbone_variant="tiny")
+    plots = str(tmp_path / "plots")
+    os.makedirs(plots)
+    summary = cli.evaluate(_argv(trained, str(tmp_path / "p"),
+                                 "--eval.eval_precise", "1",
+                                 "--eval.result_dir", plots),
+                           backbone_variant="tiny")
+    assert sorted(os.listdir(plots)) == ["mAP.png", "mAP_Acc.pkl"]
+    with open(os.path.join(plots, "mAP_Acc.pkl"), "rb") as f:
+        saved = pickle.load(f)
+    np.testing.assert_array_equal(saved["iou_aps"], summary["iou_aps"])
+    assert len(saved["degree_thres_list"]) == 71
 
 
 def test_device_flag(trained, tmp_path):

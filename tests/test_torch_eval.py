@@ -178,11 +178,25 @@ def test_wild6d_reader_equals_jax(tmp_path):
 
 
 def test_jpeg_frames_raise(tmp_path):
+    """Wild6D's JPEG frames: baseline files read equal to the JAX reader
+    bitwise (image, detection dict, depth); a progressive frame, which
+    the port does not decode, raises naming its ROADMAP item, where cv2
+    reads it."""
+    import cv2
+
     root = str(tmp_path / "wild_jpeg")
     write_wild6d(root, jpeg=True)
-    assert jax_load.WildEvalReader(root).read(0) is not None
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        load_eval.WildEvalReader(root).read(0)
+    port = load_eval.WildEvalReader(root)
+    ref = jax_load.WildEvalReader(root)
+    for i in range(len(ref)):
+        assert_items_equal(port.read(i), ref.read(i))
+        np.testing.assert_array_equal(port.read_depth(i), ref.read_depth(i))
+    frame = os.path.join(root, "test_set", "bottle", "0001/1", "images",
+                         "0000.jpg")
+    cv2.imwrite(frame, cv2.imread(frame), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    assert ref.read(0) is not None
+    with pytest.raises(NotImplementedError, match="item 14"):
+        port.read(0)
 
 
 class _JaxStandIn:
@@ -272,15 +286,59 @@ def test_eval_path_equals_jax(eval_dirs, precise):
 
 
 def test_unported_branches_raise(eval_dirs, tmp_path):
-    # the Umeyama path is ported: it skips every image without depth
+    """The Umeyama path skips every image without depth; a test frame that
+    is a progressive JPEG (cv2 picks its decoder by content) raises
+    naming its ROADMAP item; ``eval_precise`` with ``eval.result_dir``,
+    which raised before the plot was ported, writes ``mAP.png`` and a
+    ``mAP_Acc.pkl`` equal to the JAX package's."""
+    import cv2
+    import shutil
+
     cfg = parse_overrides(Config(), argv(eval_dirs, "--eval.use_umeyama",
                                          "1"))
     reader = load_eval.NocsEvalReader("Real", eval_dirs)
     reader.read_depth = lambda i: None
     model = torch.nn.Linear(1, 1)
     assert evaluate.run_inference(reader, model, None, cfg) == []
-    cfg = parse_overrides(Config(), argv(eval_dirs, "--eval.eval_precise",
-                                         "1", "--eval.result_dir",
-                                         str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="queue A, item 8"):
-        evaluate.evaluate_results([], cfg)
+
+    data = str(tmp_path / "progressive")
+    shutil.copytree(eval_dirs, data)
+    color = os.path.join(data, reader.img_list[0] + "_color.png")
+    ok, buf = cv2.imencode(".jpg", cv2.imread(color),
+                           [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with open(color, "wb") as f:
+        f.write(buf.tobytes())
+    assert jax_load.NocsEvalReader("Real", data).read(0) is not None
+    with pytest.raises(NotImplementedError, match="item 14"):
+        load_eval.NocsEvalReader("Real", data).read(0)
+
+    rt = np.eye(4)
+    rt[:3, 3] = (0.0, 0.0, 1.0)
+    result = {"gt_class_ids": np.array([1]), "pred_class_ids": np.array([1]),
+              "gt_RTs": rt[None], "pred_RTs": rt[None].copy(),
+              "gt_scales": np.full((1, 3), 0.5),
+              "pred_scales": np.full((1, 3), 0.5),
+              "pred_scores": np.array([0.9]),
+              "gt_handle_visibility": np.ones(1),
+              "pred_bboxes": np.array([[10, 10, 50, 50]]),
+              "gt_bboxes": np.array([[10, 10, 50, 50]])}
+    saved = {}
+    for name, parse, mod, conf in (("port", parse_overrides, evaluate,
+                                    Config()),
+                                   ("jax", jax_parse, jax_evaluate,
+                                    JaxConfig())):
+        out = str(tmp_path / name)
+        os.makedirs(out)
+        c = parse(conf, argv(eval_dirs, "--eval.eval_precise", "1",
+                             "--eval.result_dir", out))
+        mod.evaluate_results([dict(result)], c, log=lambda s: None)
+        assert sorted(os.listdir(out)) == ["mAP.png", "mAP_Acc.pkl"]
+        with open(os.path.join(out, "mAP_Acc.pkl"), "rb") as f:
+            saved[name] = pickle.load(f)
+    assert saved["port"].keys() == saved["jax"].keys()
+    for k, v in saved["jax"].items():
+        got = saved["port"][k]
+        assert type(got) is type(v)
+        if isinstance(v, np.ndarray):
+            assert got.dtype == v.dtype and got.shape == v.shape
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(v))

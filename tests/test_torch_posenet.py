@@ -175,7 +175,9 @@ def test_port_imports_no_jax():
     the export, training, scale-net and evaluation CLIs and the data and
     eval layers named as well), chip_smoke.py and the GPU scripts under
     tools/ (the windowed kernel's sweep and the overfit proof too) import
-    without JAX, OpenCV, PIL or matplotlib, which the GPU machine lacks."""
+    without JAX, OpenCV, PIL or matplotlib, which the GPU machine lacks;
+    the JPEG decoder, PnP, the eval plots and the checkpoint converters
+    are named too."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import givepose_torch\n"
@@ -189,6 +191,9 @@ def test_port_imports_no_jax():
         "import givepose_torch.data.augment3d, givepose_torch.data.synthetic\n"
         "import givepose_torch.cli.train_scale, givepose_torch.cli.evaluate\n"
         "import givepose_torch.eval.load_eval, givepose_torch.models\n"
+        "import givepose_torch.data.jpeg, givepose_torch.eval.pnp\n"
+        "import givepose_torch.eval.visualize\n"
+        "import givepose_torch.models.convert_weights\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'tools')\n"
         "import train_path_spread, mlp_breakdown, dcnv3_breakdown\n"

@@ -303,3 +303,42 @@ def test_bridge_loads_strictly_and_transposes_depthwise(scalenet_case):
     np.testing.assert_array_equal(_convert_leaf("kernel", k), w)
     # the block without expansion: flax's Conv_0 is its depthwise conv
     assert sd["feat_encoder_full.bneck0.convs.0.weight"].shape == (16, 1, 3, 3)
+
+
+def test_float64_copy_equals_jax_in_float64():
+    """``tools/scale_trajectory.py``'s step-1 comparison rests on two f64
+    evaluations: the JAX ScaleNet with its literal f32 read as f64, and
+    the port's float64 copy (every layer's ``compute_dtype`` and the
+    head's casts follow the parameters).  In train mode with the same
+    dropout masks their predictions, every layer's output and the
+    gradients agree to f64 rounding, and the port's f32 forward is not
+    its f64 one."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import scale_trajectory as st
+
+    from givepose_torch.core.config import Config
+
+    cfg = Config()
+    batch = make_batch(11)
+    batch["real_size"] = np.random.default_rng(12).uniform(
+        0.05, 0.3, (BATCH, 3)).astype(np.float32)
+    model = JaxScaleNet()
+    variables = random_variables(model, to_jax(batch), seed=13)
+    rng = np.random.default_rng(14)
+    masks = [rng.random((BATCH, 576)) < 0.8 for _ in range(2)]
+    ref = st.jax_step1(cfg, variables, batch, masks, f64=True)
+    got = st.port_step1(cfg, variables, batch, masks, torch.float64)
+    f32 = st.port_step1(cfg, variables, batch, masks, torch.float32)
+    assert st._rel(got["pred"], ref["pred"]) < 1e-12
+    for name in st.LAYERS:
+        assert st._rel(got["acts"][name], ref["acts"][name]) < 1e-11, name
+    # leaves whose exact gradient is 0 hold f64 noise on both sides: each
+    # leaf is held against the largest gradient of all
+    scale = max(np.abs(g).max() for g in ref["grads"].values())
+    for name, g in ref["grads"].items():
+        assert np.abs(got["grads"][name] - g).max() < 1e-10 * scale, name
+    assert st._rel(f32["pred"], got["pred"]) > 1e-9

@@ -21,7 +21,9 @@ the schedules stay those of ``--steps``, to measure the scale net alone
 (its per-image scale ratios do not depend on PoseNet).  Writes
 ``OVERFIT_torch_seed<S>.json`` (or ``--out``): the final losses, the
 absolute mAP, the present-class mAP with its pass flags (IoU25 >= 95,
-10°10cm >= 80), GT-substitution diagnostics, each image's
+10°10cm >= 80), GT-substitution diagnostics (``scale_on_gt_pose``: the ScaleNet's scale
+on GT poses, and ``scale_pass``, that variant against the bars), each
+image's
 predicted metric scale over the GT's, both CLIs' logged losses, the
 backend and the card's name and power limit.  Exits 1 when a bar is
 missed.
@@ -146,6 +148,22 @@ def scale_ratios(results) -> list:
     return out
 
 
+def scale_on_gt_pose(r) -> None:
+    """GT rotation, translation and size, with the predicted metric scale
+    over the GT's folded into the sRT's top rows as ``cli.evaluate`` folds
+    the ScaleNet's: what a perfect PoseNet would score with this ScaleNet,
+    so a run of the ScaleNet alone (``--pose-steps 1``) passes or misses
+    on its scale."""
+    n = min(len(r["pred_RTs"]), len(r["gt_RTs"]))
+    for i in range(n):
+        gt = np.asarray(r["gt_RTs"][i], np.float64)
+        ratio = (np.cbrt(np.linalg.det(r["pred_RTs"][i][:3, :3]))
+                 / np.cbrt(np.linalg.det(gt[:3, :3])))
+        r["pred_RTs"][i] = gt
+        r["pred_RTs"][i, :3, :] *= ratio
+        r["pred_scales"][i] = np.asarray(r["gt_scales"])[i]
+
+
 def diagnostics(results, rows) -> dict:
     """Re-score the cached predictions with GT substituted for one factor
     at a time (the scale net's metric scale, the size head's extents, the
@@ -188,6 +206,7 @@ def diagnostics(results, rows) -> dict:
         "gt_scale_and_size": rescore(lambda r: (sub_gt_scale(r),
                                                 sub_gt_size(r))),
         "gt_pose_and_scale": rescore(sub_gt_pose),
+        "scale_on_gt_pose": rescore(scale_on_gt_pose),
     }
 
 
@@ -300,6 +319,9 @@ def run(steps: int = 2500, sn_steps: int = 800, seed: int = 0,
         "seconds": times,
         "pass_iou25": present_mAP["IoU25"] >= IOU25_BAR,
         "pass_10d10cm": present_mAP["10d10cm"] >= DEG10_CM10_BAR,
+        "scale_pass": (
+            diag["scale_on_gt_pose"]["IoU25"] >= IOU25_BAR
+            and diag["scale_on_gt_pose"]["10d10cm"] >= DEG10_CM10_BAR),
     }
     with open(out_json, "w") as f:
         json.dump(out, f, indent=1)
